@@ -17,6 +17,24 @@
 4. Checks the results by the port's own means (shapes, ranges, rollup
    weights and means against the grids, the engine's device half on the
    card against the CPU on the same draws).
+5. Holds the kernel API's kernels (GEMM, SSD intra-chunk, flash
+   attention) against their plain versions at the JAX tests' shapes and
+   tolerances, ragged flash shapes included.
+6. Drives the kernel API's paths at full model width, each with the
+   launch counts set to 0 just before and read just after: the GEMM
+   characterization table and `ops.matmul` on the two dominant GEMMs of
+   granite-3-2b and llama3.2-3b in bf16, fp32 and int8, and on
+   whisper-small's two encoder GEMMs (1,500 tokens, not tile-aligned) in
+   bf16.  The Eq. 3 padding is checked exactly: the FLOPs of the padded
+   grid each call hands the kernel == GemmProfile.profiled_flops == the
+   closed form, and the bf16 executed/theoretical ratio == the tile
+   factor (the fleet engine's, 1, for the aligned models; 1.024 for
+   whisper's).
+   `ops.ssd` at mamba2-780m width (S = 4,096); `ops.flash` at
+   llama3.2-3b width (S = 4,096, causal, GQA).  Each is held against its
+   plain version (bf16 at full width to 2^-6 of the value plus 2^-5 of
+   the row's RMS, a limit shown to reject a zeroed output and one with
+   a key tile dropped) and timed beside its bound and a library call.
 
 Prints the phase times and peak device memory, then one JSON line with
 every kernel's record and, last, `{"ok": true, "device": {...}}`.  Exits
@@ -26,6 +44,7 @@ or when run outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -35,9 +54,24 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM, outside the tensor cores
+#: H100 SXM data-sheet peaks by input type: dense tensor-core bf16 and
+#: int8, f32 outside the tensor cores (what true-f32 work can use)
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": FP32_FLOP_PER_S, "int8": 1979e12}
 EDGES = np.linspace(0.0, 1.1, 129)          # StreamingRollup's default bins
 N_JOBS, ROWS_PER_JOB, DAY_S, SCRAPE_S, BUCKET_S = 64, 1563, 86400.0, 30.0, 300
 SLOW_JOB = "job17"
+REPS = 3                        # timed launches after one warm-up
+# the JAX package's kernel tests' shapes (tests/test_kernels.py)
+GEMM_SHAPES = [(128, 128, 128), (256, 512, 384), (300, 150, 200),
+               (1, 128, 128), (129, 257, 513)]
+FLASH_SHAPES = [(2, 128, 128, 8, 8, 32, True), (2, 128, 128, 8, 2, 32, True),
+                (1, 64, 128, 4, 4, 16, False), (2, 256, 256, 4, 1, 64, True)]
+SSD_SHAPES = [(4, 16, 4, 16, 8, 2), (2, 32, 8, 8, 16, 4), (1, 64, 2, 32, 4, 2)]
+GEMM_MODELS = ("granite-3-2b", "llama3.2-3b")   # the simulated fleet's
+RECORD_GEMM = ("llama3.2-3b", (4096, 8192, 3072), "bf16")
+#: bf16 at full width: 2-4 ulps of the value, plus 4-8 ulps of its row's
+#: RMS for the elements that cancel to near 0
+BF16_RTOL, BF16_ROW_ATOL = 2 ** -6, 2 ** -5
 
 
 def fail(msg: str):
@@ -61,6 +95,7 @@ def main() -> None:
     sys.path.insert(0, str(src))
     from repro_torch.kernels import _build
     from repro_torch.kernels import fleet_hist as fh
+    from repro_torch.kernels import flash_attention, gemm, ssd_scan
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -68,7 +103,7 @@ def main() -> None:
 
     # -- 1. build and device ------------------------------------------------
     t0 = time.perf_counter()
-    _build.build(["fleet_hist"])
+    _build.build(["fleet_hist", "gemm", "ssd_scan", "flash_attention"])
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -182,6 +217,15 @@ def main() -> None:
                 "replaces": "src/repro/kernels/fleet_hist.py:79",
                 "launches": launches["fleet_hist"], **rec,
                 "library_ms": None}]
+
+    # -- 5. the kernel API's kernels vs their plain versions, small ------
+    kernel_api_small(torch, dev)
+
+    # -- 6. the kernel API's paths at full model width ----------------------
+    kernels += kernel_api_paths(torch, dev, {
+        "fleet_hist": fh.ofu_bucket_hist, "gemm": gemm.gemm_padded,
+        "ssd_intra": ssd_scan.ssd_intra_kernel,
+        "flash_attention": flash_attention.flash_attention_kernel})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -374,6 +418,436 @@ def check_device_half(torch, dev) -> None:
           f"tpa max rel {tpa_err:.2e}, clock max abs {clk_err:.2e} MHz")
     check(tpa_err <= 1e-6 and clk_err <= 1e-2,
           "engine device half on the card disagrees with the CPU")
+
+
+# ---------------------------------------------------------------------------
+# the kernel API: GEMM, SSD intra-chunk, flash attention
+# ---------------------------------------------------------------------------
+def close(torch, name: str, got, want, rtol: float, atol: float) -> float:
+    """Fails unless got and want have one shape, got is finite and
+    |got - want| <= atol + rtol·|want| everywhere (bitwise when both are
+    0); returns max |got - want|."""
+    check(tuple(got.shape) == tuple(want.shape),
+          f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    g, w = got.double(), want.double()
+    check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
+    err = (g - w).abs()
+    mx = float(err.max()) if err.numel() else 0.0
+    check(bool((err <= atol + rtol * w.abs()).all()),
+          f"{name}: kernel differs from its plain version (max |diff| "
+          f"{mx:.3e} beyond rtol {rtol}, atol {atol})")
+    return mx
+
+
+def close_rows(torch, name: str, got, want, mutants: dict) -> float:
+    """The full-width bf16 check: fails unless got has want's shape, is
+    finite and |got - want| <= 2^-6·|want| + 2^-5·rms everywhere, rms the
+    RMS of want's row along its last dim (the elements of a row that
+    cancel to near 0 carry the rounding error of the whole row); and
+    unless that limit rejects each of `mutants` (name -> a wrong output),
+    so that it is seen to catch a zeroed or tile-dropping kernel.
+    Prints the typical |want| beside max |diff|; returns max |diff|."""
+    check(tuple(got.shape) == tuple(want.shape),
+          f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    w = want.double()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+    limit = BF16_RTOL * w.abs() + BF16_ROW_ATOL * rms
+
+    def beyond(t):
+        return (t.double() - w).abs() > limit
+
+    mx = float((got.double() - w).abs().max())
+    n_bad = int(beyond(got).sum())
+    check(n_bad == 0, f"{name}: {n_bad} elements differ from the plain "
+          f"version beyond rtol 2^-6 + 2^-5 of the row RMS (max |diff| "
+          f"{mx:.3e})")
+    caught = []
+    for what, t in mutants.items():
+        n = int(beyond(t).sum())
+        check(n > 0, f"{name}: the limit passes a {what} output")
+        caught.append(f"{what} {n:,d}")
+    print(f"{name}: max |diff| {mx:.3e}, median |out| "
+          f"{float(w.abs().median()):.3e}, row RMS {float(rms.min()):.3e} "
+          f"to {float(rms.max()):.3e}; the limit rejects, of "
+          f"{w.numel():,d} elements: " + ", ".join(caught))
+    return mx
+
+
+def bound(n_bytes: float, n_ops: float, kind: str) -> dict:
+    """The least time the card could take: bytes over the data sheet's
+    HBM rate or operations over its peak for the input type, the larger."""
+    b = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+         "operations": n_ops / PEAK_OPS_PER_S[kind] * 1e3}
+    by = max(b, key=b.get)
+    return {"bound_ms": b[by], "bound_by": by}
+
+
+def kernel_api_small(torch, dev) -> None:
+    """Each kernel of the kernel API, through its public entry point, on
+    the card against its plain version there, at the JAX tests' shapes
+    and tolerances (GEMM rtol 1e-3/atol 1e-4 f32, 0.2/2e-2 bf16, int8
+    exact; flash 1e-3 f32, 5e-2 bf16; SSD 1e-3), plus ragged flash
+    shapes (Sk = 200, which the reference's 64-key blocks do not divide,
+    and Sq = 100) that must launch the kernel."""
+    from repro_torch.core.tile_quant import TilePolicy
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm, ops
+    from repro_torch.kernels.ref import (ref_attention, ref_matmul,
+                                         ref_ssd_intra)
+    from repro_torch.kernels.ssd_scan import ssd_intra_kernel
+    rng = np.random.default_rng(42)
+
+    def arr(shape, dtype=torch.float32, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape) * scale) \
+            .to(dtype).to(dev)
+
+    def gemm_case(x, y, pol, rtol, atol, name):
+        f0 = gemm.gemm_padded.launched_flops
+        out, prof = ops.matmul(x, y, policy=pol)
+        check(gemm.gemm_padded.launched_flops - f0 == prof.profiled_flops,
+              f"{name}: launched FLOPs differ from the profile")
+        return close(torch, name, out, ref_matmul(x, y), rtol, atol), prof
+
+    errs = {}
+    for M, N, K in GEMM_SHAPES:
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            name = f"gemm {M}x{N}x{K} {dtype}"
+            err, _ = gemm_case(arr((M, K), dtype), arr((K, N), dtype),
+                               TilePolicy(128, 128, 128), tol * 10, tol,
+                               name)
+            errs[str(dtype)] = max(errs.get(str(dtype), 0.0), err)
+    xi, yi = (torch.from_numpy(rng.integers(-100, 100, s)).to(torch.int8)
+              .to(dev) for s in ((200, 300), (300, 100)))
+    errs["int8"], _ = gemm_case(xi, yi, TilePolicy(128, 128, 128), 0, 0,
+                                "gemm 200x100x300 int8")
+    errs["cm=cn=2"], prof = gemm_case(
+        arr((300, 200)), arr((200, 150)),
+        TilePolicy(128, 128, 128, cm=2, cn=2), 1e-3, 1e-4,
+        "gemm 300x150x200 f32 cm=cn=2")
+    check(prof.profiled_flops == 2 * 512 * 256 * 256,
+          f"cm=cn=2 profile {prof.profiled_flops}")
+    print("gemm small shapes (5 shapes x f32/bf16, int8, cm=cn=2): max "
+          "|diff| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+    errs = {}
+    ragged = [(2, 128, 200, 8, 2, 32, True), (2, 100, 100, 8, 2, 32, True)]
+    for B, Sq, Sk, H, KV, hd, causal in FLASH_SHAPES + ragged:
+        for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
+            q, k, v = (arr(s, dtype) for s in ((B, Sq, H, hd),
+                                               (B, Sk, KV, hd),
+                                               (B, Sk, KV, hd)))
+            n0 = fa.flash_attention_kernel.launches
+            out = ops.flash(q, k, v, causal=causal)
+            check(fa.flash_attention_kernel.launches == n0 + 1,
+                  f"flash {Sq}x{Sk} did not launch the kernel")
+            key = f"{'ragged ' if Sk % 64 or Sq % 64 else ''}{dtype}"
+            errs[key] = max(errs.get(key, 0.0), close(
+                torch, f"flash {(B, Sq, Sk, H, KV, hd, causal)} {dtype}",
+                out, ref_attention(q, k, v, causal=causal), tol, tol))
+    print("flash small shapes (4 shapes + Sk=200 + Sq=100, each "
+          "f32 and bf16; every call launched the kernel): max |diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+    err = 0.0
+    for BC, Q, nh, hd, ds, hb in SSD_SHAPES:
+        x = arr((BC, Q, nh, hd), scale=0.5)
+        dt = torch.from_numpy(rng.uniform(0.001, 0.1, (BC, Q, nh))) \
+            .float().to(dev)
+        A = -torch.from_numpy(rng.uniform(0.5, 2.0, (nh,))).float().to(dev)
+        dacs = torch.cumsum(dt * A, dim=1)
+        b, c = arr((BC, Q, nh, ds), scale=0.3), arr((BC, Q, nh, ds),
+                                                    scale=0.3)
+        err = max(err, close(torch, f"ssd_intra {(BC, Q, nh, hd, ds)}",
+                             ssd_intra_kernel(x, dt, dacs, b, c,
+                                              head_block=hb),
+                             ref_ssd_intra(x, dt, dacs, b, c), 1e-3, 1e-3))
+    B, S, nh, hd, g, ds, Q = 2, 64, 4, 16, 2, 8, 16
+    args = (arr((B, S, nh, hd), scale=0.5),
+            torch.from_numpy(rng.uniform(0.001, 0.1, (B, S, nh))).float()
+            .to(dev),
+            -torch.from_numpy(rng.uniform(0.5, 2.0, (nh,))).float().to(dev),
+            arr((B, S, g, ds), scale=0.3), arr((B, S, g, ds), scale=0.3))
+    path_err = close(torch, "ops.ssd small", ops.ssd(*args, chunk=Q),
+                     ops.ssd(*(a.cpu() for a in args), chunk=Q).to(dev),
+                     1e-3, 1e-3)
+    print(f"ssd small shapes (3 intra-chunk shapes; ops.ssd {B}x{S} against "
+          f"its plain path on the CPU): max |diff| intra {err:.3e}, path "
+          f"{path_err:.3e}")
+
+
+def kernel_api_paths(torch, dev, counters: dict) -> list:
+    """Drives each kernel API path with every launch count set to 0 just
+    before and read just after, fails if the path never launched its
+    kernel, then runs the path's plain-version checks and timings;
+    returns one kernel record a path."""
+    records = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name, path in (("gemm", gemm_path), ("ssd_intra", ssd_path),
+                       ("flash_attention", flash_path)):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        run = path(torch, dev)          # drives the path, returns a closure
+        torch.cuda.synchronize()
+        counts = {n: c.launches for n, c in counters.items()}
+        print(f"{name} path: launches {counts}")
+        check(counts[name] >= 1, f"the {name} path never launched its "
+              "kernel")
+        records.append({"name": name, "route": "cuda",
+                        "launches": counts[name], **run()})
+    print(f"peak device memory over the kernel API paths "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    return records
+
+
+def gemm_inputs(torch, gen, dev, M, N, K, kind):
+    """Operands of one full-width GEMM, made on the card from `gen`."""
+    if kind == "int8":
+        return (torch.randint(-128, 128, s, generator=gen, device=dev,
+                              dtype=torch.int8) for s in ((M, K), (K, N)))
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    return (torch.randn(s, generator=gen, device=dev).to(dtype)
+            for s in ((M, K), (K, N)))
+
+
+def gemm_path(torch, dev):
+    """The GEMM path at full width: the characterization table, then
+    `ops.matmul` with `pick_policy`'s choice on each model's two dominant
+    GEMMs in bf16, fp32 and int8, and on whisper-small's two encoder
+    GEMMs in bf16, which its 1,500 tokens leave unaligned.  This checks
+    the Eq. 3 padding: the FLOPs of the padded grid each call hands the
+    kernel (2·M_eff·N_eff·K_eff, counted by the wrapper from the shapes
+    it launches; the kernel's loops run over exactly those shapes) must
+    equal its GemmProfile's and the closed form's, and each model's bf16
+    executed/theoretical ratio the tile factor: the fleet engine's
+    `_tile_quant_factor` at 4,096 tokens (1 for the aligned models), the
+    same mean at whisper's 1,500 (1.024).  Returns the
+    closure that holds each call against the plain version and times it
+    (tolerances: bf16 the JAX test's rtol 0.2/atol 2e-2; f32 rtol 1e-3
+    with the test's atol 1e-4 grown linearly in K/128, as the worst-case
+    rounding of an f32 sum grows; int8 exact)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.peaks import DEFAULT_CHIP
+    from repro_torch.core.tile_quant import (pick_policy, profiled_flops,
+                                             theoretical_flops)
+    from repro_torch.examples import gemm_characterization
+    from repro_torch.fleet.jobs import _tile_quant_factor
+    from repro_torch.kernels import gemm, ops
+
+    n0, f0 = gemm.gemm_padded.launches, gemm.gemm_padded.launched_flops
+    profs = [p for _, p in gemm_characterization.main(device=dev)]
+    check(gemm.gemm_padded.launches - n0 == len(profs)
+          and gemm.gemm_padded.launched_flops - f0
+          == sum(p.profiled_flops for p in profs)
+          and all(p.profiled_flops == profiled_flops(p.M, p.N, p.K, p.policy)
+                  for p in profs),
+          "characterization: launched FLOPs differ from the profiles")
+    print(f"characterization: {len(profs)} launches, padded grids of "
+          f"{gemm.gemm_padded.launched_flops - f0:,d} FLOPs == sum of "
+          "profiled == closed form")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = []
+    for model in GEMM_MODELS + ("whisper-small",):
+        cfg = get_config(model)
+        d = cfg.d_model
+        # the fleet's tokens per GEMM; whisper's encoder takes 1,500 frames
+        tokens = cfg.encoder_seq if model == "whisper-small" else 4096
+        kinds = ("bf16",) if model == "whisper-small" else ("bf16", "fp32",
+                                                             "int8")
+        bf16 = []
+        for M, N, K in [(tokens, d, d), (tokens, cfg.d_ff or d, d)]:
+            for kind in kinds:
+                x, y = gemm_inputs(torch, gen, dev, M, N, K, kind)
+                f0 = gemm.gemm_padded.launched_flops
+                out, prof = ops.matmul(x, y)
+                launched = gemm.gemm_padded.launched_flops - f0
+                closed = profiled_flops(M, N, K, pick_policy(M, N, K, kind))
+                check(launched == prof.profiled_flops == closed,
+                      f"{model} ({M}, {N}, {K}) {kind}: launched "
+                      f"{launched}, profiled {prof.profiled_flops}, closed "
+                      f"form {closed}")
+                print(f"gemm {model} ({M}, {N}, {K}) {kind}: policy "
+                      f"{prof.policy.name}, padded grid {launched:,d} "
+                      "FLOPs == profiled == closed form")
+                cases.append((model, (M, N, K), kind, x, y, out, prof))
+                if kind == "bf16":
+                    bf16.append(prof)
+        ratio = float(np.mean([p.profiled_flops / p.theoretical_flops
+                               for p in bf16]))
+        if tokens == 4096:
+            factor, of = _tile_quant_factor(cfg, DEFAULT_CHIP), \
+                "_tile_quant_factor"
+        else:        # its closed form, at the encoder's token count
+            factor = float(np.mean([
+                profiled_flops(p.M, p.N, p.K, pick_policy(p.M, p.N, p.K))
+                / theoretical_flops(p.M, p.N, p.K) for p in bf16]))
+            of = f"the tile factor at {tokens} tokens"
+            check(factor > 1, f"{model}: the tile factor is {factor!r}")
+        check(ratio == factor, f"{model}: bf16 executed/theoretical "
+              f"{ratio!r} != {of} {factor!r}")
+        print(f"gemm {model}: bf16 executed/theoretical {ratio!r} == "
+              f"{of} {factor!r}")
+
+    def run() -> dict:
+        from repro_torch.kernels.ref import ref_matmul
+        library = {"bf16": torch.matmul, "fp32": torch.matmul,
+                   "int8": torch._int_mm}
+        record = None
+        while cases:
+            model, (M, N, K), kind, x, y, out, prof = cases.pop(0)
+            tol = {"int8": (0, 0), "fp32": (1e-3, 1e-4 * K / 128),
+                   "bf16": (0.2, 2e-2)}[kind]
+            err = close(torch, f"gemm {model} ({M}, {N}, {K}) {kind}", out,
+                        ref_matmul(x, y), *tol)
+            pol = prof.policy
+            xp = ops._pad_to(x, pol.tm * pol.cm, pol.tk).contiguous()
+            yp = ops._pad_to(y, pol.tk, pol.tn * pol.cn).contiguous()
+            ms = event_ms(torch, lambda: gemm._launch(xp, yp), REPS)
+            plain_ms = event_ms(torch, lambda: ref_matmul(x, y), REPS)
+            lib_ms = event_ms(torch, lambda: library[kind](x, y), REPS)
+            (Me, Ke), Ne = xp.shape, yp.shape[1]
+            b = bound((Me * Ke + Ke * Ne) * x.element_size()
+                      + Me * Ne * out.element_size(), 2 * Me * Ne * Ke, kind)
+            print(f"gemm {model} ({M}, {N}, {K}) {kind}: max |diff| "
+                  f"{err:.3e}; kernel {ms:.4f} ms "
+                  f"({2 * Me * Ne * Ke / ms / 1e9:.1f} TFLOP/s), plain "
+                  f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+            if (model, (M, N, K), kind) == RECORD_GEMM:
+                record = {"source": "src/repro_torch/kernels/csrc/gemm.cu",
+                          "replaces": "src/repro/kernels/gemm.py:24",
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          **b, "library_ms": lib_ms}
+        check(record is not None, f"the path ran no {RECORD_GEMM} GEMM")
+        return record
+    return run
+
+
+def ssd_path(torch, dev):
+    """The SSD path at mamba2-780m width: `ops.ssd` on B = 1, S = 4,096
+    (16 chunks of 256), 48 heads of 64, one group of state 128, x/B/C in
+    the config's bf16, dt log-uniform in [1e-3, 1e-1] and A = -U(1, 16)
+    (Mamba2's initialisation ranges).  The closure holds the output
+    against the same entry point on CPU copies (its plain path) and the
+    kernel against its plain version on the path's inputs, with
+    `close_rows`, then times the kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ssd_scan
+    from repro_torch.kernels.ref import ref_ssd_intra
+    cfg = get_config("mamba2-780m")
+    B, S = 1, 4096
+    nh, hd, g, ds = (cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_ngroups,
+                     cfg.ssm_state)
+    dtype = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = (torch.randn((B, S, nh, hd), generator=gen, device=dev) * 0.5) \
+        .to(dtype)
+    dt = torch.empty((B, S, nh), device=dev).uniform_(
+        math.log(1e-3), math.log(1e-1), generator=gen).exp_()
+    A = -torch.empty(nh, device=dev).uniform_(1.0, 16.0, generator=gen)
+    Bm, Cm = ((torch.randn((B, S, g, ds), generator=gen, device=dev) * 0.3)
+              .to(dtype) for _ in range(2))
+    t0 = time.perf_counter()
+    y = ops.ssd(x, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+    torch.cuda.synchronize()
+    print(f"ssd path: ops.ssd {cfg.name} ({B}, {S}, {nh}, {hd}), g {g}, ds "
+          f"{ds}, chunk {cfg.ssm_chunk}, {dtype}: "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms wall")
+
+    def run() -> dict:
+        y_plain = ops.ssd(*(t.cpu() for t in (x, dt, A, Bm, Cm)),
+                          chunk=cfg.ssm_chunk)
+        path_err = close_rows(torch, "ops.ssd at mamba2-780m width", y,
+                              y_plain.to(dev),
+                              {"zeroed": torch.zeros_like(y)})
+        inputs = ops.ssd_intra_inputs(x, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+        got = ssd_scan._launch(*inputs)
+        want = ref_ssd_intra(*inputs)
+        # a kernel that skips each chunk's last diagonal 64-column step:
+        # its last 64 rows lose what their own columns give them
+        tail = ref_ssd_intra(*(t[:, -64:] for t in inputs))
+        dropped = want.clone()
+        dropped[:, -64:] = (want[:, -64:].float() - tail.float()).to(dtype)
+        err = close_rows(torch, "ssd_intra at mamba2-780m width", got, want,
+                         {"zeroed": torch.zeros_like(want),
+                          "diagonal-step-dropped": dropped})
+        ms = event_ms(torch, lambda: ssd_scan._launch(*inputs), REPS)
+        plain_ms = event_ms(torch, lambda: ref_ssd_intra(*inputs), REPS)
+        BC, Q = inputs[0].shape[:2]
+        n_bytes = sum(t.numel() * t.element_size() for t in inputs) \
+            + got.numel() * got.element_size()
+        # C.B and M.X over the causal pairs, and M's decay and scale
+        n_ops = BC * nh * Q * (Q + 1) // 2 * (2 * ds + 2 * hd + 4)
+        b = bound(n_bytes, n_ops, "bf16" if dtype == torch.bfloat16
+                  else "fp32")
+        print(f"ssd_intra {cfg.name} ({BC}, {Q}, {nh}, {hd}, ds {ds}): max "
+              f"|diff| kernel {err:.3e}, path {path_err:.3e}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}, "
+              f"{n_bytes / 1e6:.1f} MB)")
+        return {"source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                "replaces": "src/repro/kernels/ssd_scan.py:23",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                "library_ms": None}
+    return run
+
+
+def flash_path(torch, dev):
+    """The flash path at llama3.2-3b width: `ops.flash` on B = 1,
+    S = 4,096, 24 query heads over 8 kv heads of 128, causal, bf16.
+    The closure holds it against the plain version with `close_rows`
+    and times kernel, plain version and `scaled_dot_product_attention`."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ref_attention
+    cfg = get_config("llama3.2-3b")
+    B, S, H, KV, hd = 1, 4096, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dtype = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+               for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    t0 = time.perf_counter()
+    out = ops.flash(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    print(f"flash path: ops.flash {cfg.name} ({B}, {S}, H {H}, KV {KV}, hd "
+          f"{hd}), causal, {dtype}: {(time.perf_counter() - t0) * 1e3:.2f} "
+          "ms wall")
+
+    def run() -> dict:
+        want = ref_attention(q, k, v, causal=True)
+        # a kernel that drops the last rows' diagonal 32-key tile: they
+        # see only the keys before it
+        dropped = want.clone()
+        dropped[:, -32:] = ref_attention(q[:, -32:], k[:, :-32], v[:, :-32],
+                                         causal=False)
+        err = close_rows(torch, "flash at llama3.2-3b width", out, want,
+                         {"zeroed": torch.zeros_like(want),
+                          "diagonal-tile-dropped": dropped})
+        ms = event_ms(torch, lambda: fa._launch(q, k, v, True, hd ** -0.5),
+                      REPS)
+        plain_ms = event_ms(torch, lambda: ref_attention(q, k, v,
+                                                         causal=True), REPS)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), REPS)
+        n_ops = 4 * B * H * hd * (S * (S + 1) // 2)
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        b = bound(n_bytes, n_ops, "bf16" if dtype == torch.bfloat16
+                  else "fp32")
+        print(f"flash {cfg.name}: max |diff| {err:.3e}; kernel {ms:.4f} ms "
+              f"({n_ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"library (SDPA) {lib_ms:.4f} ms, bound {b['bound_ms']:.4f} "
+              f"ms ({b['bound_by']}, {n_ops / 1e9:.1f} GFLOP)")
+        return {"source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:20",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                "library_ms": lib_ms}
+    return run
 
 
 if __name__ == "__main__":

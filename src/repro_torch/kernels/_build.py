@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface.  It is compiled by
 `nvcc` for Hopper (`sm_90a`) into `build/kernels/<name>-<hash>.so` at the
-root of the checkout, keyed by the source's hash, and loaded with
-`ctypes`.  Nothing here runs at import time: the CPU tests import every
-module on machines without `nvcc`.
+root of the checkout, keyed by the hash of the source and of the shared
+headers (`csrc/*.cuh`), and loaded with `ctypes`.  Nothing here runs at
+import time: the CPU tests import every module on machines without
+`nvcc`.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

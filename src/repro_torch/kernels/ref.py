@@ -1,0 +1,62 @@
+"""Plain PyTorch versions of the kernels of the kernel API.
+
+Each is the oracle its CUDA kernel is held to on the card, and what the
+kernel's wrapper runs for a tensor that lies on the CPU.  They keep the
+rounding points of the JAX package's oracles (`repro/kernels/ref.py`):
+products of bf16 values are exact in f32 and are summed in f32 (int32
+for int8), and the output is cast once.  The f32 products go through
+`torch.matmul`/`einsum`, so on the card they are true f32 only while
+`torch.backends.cuda.matmul.allow_tf32` is False (PyTorch's default).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def ref_matmul(x: torch.Tensor, y: torch.Tensor):
+    """x @ y, summed in f32 (exactly, in int32, for int8) and cast once
+    to int32 for int8, else to x's dtype."""
+    if x.dtype != torch.int8:
+        return torch.matmul(x.float(), y.float()).to(x.dtype)
+    # CUDA has no integer matmul: f64 is exact while K * 2^14 < 2^53
+    wide = torch.int64 if x.device.type == "cpu" else torch.float64
+    return torch.matmul(x.to(wide), y.to(wide)).to(torch.int32)
+
+
+def ref_attention(q, k, v, *, causal: bool, scale=None) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd), H % KV == 0.  Scores in
+    f32, causal mask top-left aligned (query i sees keys j <= i), p cast
+    to v's dtype before the PV product, output in q's dtype."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    scale = hd ** -0.5 if scale is None else scale
+    qg = q.reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qg.float(), k.float()) * scale
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqj,bjkd->bkgqd", p.to(v.dtype).float(), v.float())
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def ref_ssd_intra(x, dt, dacs, b, c) -> torch.Tensor:
+    """Direct quadratic intra-chunk SSD, in f32.
+
+    x: (BC, Q, nh, hd); dt/dacs: (BC, Q, nh); b/c: (BC, Q, g, ds) with
+    nh % g == 0, head h reading group h // (nh / g) (g = nh is the
+    reference's per-head layout).  Returns ((C·Bᵀ) ∘ L ∘ dt_j) · X in x's
+    dtype, L = exp(dacs_i − dacs_j) for i >= j, else 0.
+    """
+    Q, nh = x.shape[1], x.shape[2]
+    b, c = (t.repeat_interleave(nh // t.shape[2], dim=2) for t in (b, c))
+    cb = torch.einsum("zqhd,zkhd->zhqk", c.float(), b.float())
+    da = dacs.float().transpose(1, 2)                    # (BC, nh, Q)
+    seg = da[:, :, :, None] - da[:, :, None, :]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.where(mask, seg.exp(), torch.zeros((), device=x.device))
+    m = cb * L * dt.float().transpose(1, 2)[:, :, None, :]
+    y = torch.einsum("zhqk,zkhd->zqhd", m, x.float())
+    return y.to(x.dtype)

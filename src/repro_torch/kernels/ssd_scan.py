@@ -1,0 +1,94 @@
+"""Mamba2 SSD intra-chunk block (the model's matrix-heavy hot spot).
+
+Per (batch·chunk, head) it computes the quadratic within-chunk term
+Y = ((C·Bᵀ) ∘ L(dA) ∘ dt) @ X, where L is the causal decay matrix from
+the within-chunk cumsum of dA.  A CUDA tensor launches `csrc/ssd_scan.cu`
+(the counterpart of the TPU kernel `repro/kernels/ssd_scan.py::_ssd_kernel`;
+its source notes its design and bound); a CPU tensor takes the plain
+version, `ref.ref_ssd_intra`.  The linear inter-chunk recurrence stays in
+plain PyTorch (`ops.ssd`).
+
+B/C arrive in their groups: head h reads group h // (nh / g), where the
+reference takes them broadcast to one copy a head (g = nh here).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.ref import ref_ssd_intra
+
+_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_HD, _MAX_DS = 128, 256          # what one block's shared memory holds
+
+
+def _kernel():
+    from repro_torch.kernels import _build
+    fn = _build.load("ssd_scan").ssd_intra
+    if fn.argtypes is None:
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i32, p, p, p, p, p, p, i32, i32, i32, i32, i32, i32,
+                       i32, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(x, dt, dacs, b, c) -> torch.Tensor:
+    """One launch of the kernel on validated CUDA inputs; no count."""
+    BC, Q, nh, hd = x.shape
+    _, _, g, ds = b.shape
+    y = torch.empty_like(x)
+    err = _kernel()(_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
+                    dacs.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
+                    BC, Q, nh, hd, g, ds, x.device.index,
+                    torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_intra kernel launch failed: CUDA error {err}")
+    return y
+
+
+def ssd_intra_kernel(x, dt, dacs, b, c, *, head_block: int = 8):
+    """x: (BC, Q, nh, hd); dt/dacs: (BC, Q, nh); b/c: (BC, Q, g, ds).
+
+    BC = batch·chunks; nh % g == 0 and head h reads group h // (nh / g)
+    (g = nh: the reference's per-head layout).  Returns the intra-chunk
+    output (BC, Q, nh, hd) in x's dtype.  `head_block` is the reference's
+    head blocking: nh must be a multiple of min(head_block, nh), as
+    there; the card's kernel blocks by (chunk, head, 64-row strip)
+    whatever it is.
+    """
+    BC, Q, nh, hd = x.shape
+    g, ds = b.shape[-2:]
+    hb = min(head_block, nh)
+    if hb < 1 or nh % hb:
+        raise ValueError(f"nh = {nh} is not a multiple of head_block {hb}")
+    if (tuple(dt.shape) != (BC, Q, nh) or dacs.shape != dt.shape
+            or tuple(b.shape) != (BC, Q, g, ds) or c.shape != b.shape
+            or g < 1 or nh % g):
+        raise ValueError("expected x (BC, Q, nh, hd), dt/dacs (BC, Q, nh), "
+                         "b/c (BC, Q, g, ds) with nh % g == 0")
+    if len({t.device for t in (x, dt, dacs, b, c)}) != 1:
+        raise ValueError("inputs lie on different devices")
+    if x.device.type != "cuda":
+        return ref_ssd_intra(x, dt, dacs, b, c)
+    if x.dtype not in _CODES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError("the kernel takes x, b and c of one dtype, float32 "
+                        "or bfloat16")
+    if dt.dtype != torch.float32 or dacs.dtype != torch.float32:
+        raise TypeError("the kernel takes float32 dt and dacs")
+    if not all(t.is_contiguous() for t in (x, dt, dacs, b, c)):
+        raise ValueError("the kernel takes contiguous inputs")
+    if hd > _MAX_HD or ds > _MAX_DS or nh > 65535:
+        raise ValueError(f"hd = {hd}, ds = {ds}, nh = {nh}: the kernel "
+                         f"takes hd <= {_MAX_HD}, ds <= {_MAX_DS}, "
+                         "nh <= 65535")
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    y = _launch(x, dt, dacs, b, c)
+    ssd_intra_kernel.launches += 1
+    return y
+
+
+#: kernel launches since the count was last set to 0
+ssd_intra_kernel.launches = 0

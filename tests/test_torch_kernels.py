@@ -1,0 +1,491 @@
+"""The port's kernel API (`repro_torch.kernels.ops`, `gemm`, `ssd_scan`,
+`flash_attention`) against the JAX package's on the same numpy-seeded
+inputs, at the tolerances of `tests/test_kernels.py`: on the CPU each
+wrapper runs its kernel's plain version, the JAX side runs its Pallas
+kernels in interpret mode.  GemmProfile fields and executed FLOPs are
+held equal exactly, int8 products bitwise.
+
+The CUDA kernels are held to their plain versions on the card by the
+`gpu` tests at the end, which import nothing of JAX:
+`pytest -m gpu tests/test_torch_kernels.py`."""
+import dataclasses
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _propcheck import given, settings, st  # noqa: E402
+
+from repro_torch.core.tile_quant import TilePolicy  # noqa: E402
+from repro_torch.core.tile_quant import profiled_flops  # noqa: E402
+from repro_torch.kernels import gemm, ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_kernel)
+from repro_torch.kernels.ref import (ref_attention, ref_matmul,  # noqa: E402
+                                     ref_ssd_intra)
+from repro_torch.kernels.ssd_scan import ssd_intra_kernel  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+GEMM_SHAPES = [(128, 128, 128), (256, 512, 384), (300, 150, 200),
+               (1, 128, 128), (129, 257, 513)]
+FLASH_SHAPES = [(2, 128, 128, 8, 8, 32, True), (2, 128, 128, 8, 2, 32, True),
+                (1, 64, 128, 4, 4, 16, False), (2, 256, 256, 4, 1, 64, True)]
+SSD_SHAPES = [(4, 16, 4, 16, 8, 2), (2, 32, 8, 8, 16, 4), (1, 64, 2, 32, 4, 2)]
+
+
+def _jnp():
+    return pytest.importorskip("jax").numpy
+
+
+def _pair(a: np.ndarray, jdtype, tdtype):
+    """One numpy array as a jax array of jdtype and the torch tensor of
+    the very same values (bf16 rounded once, by jax)."""
+    jnp = _jnp()
+    j = jnp.asarray(a, jdtype)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(tdtype)
+
+
+def _same_profile(pt, pj):
+    assert (pt.M, pt.N, pt.K, pt.theoretical_flops, pt.profiled_flops) == \
+        (pj.M, pj.N, pj.K, pj.theoretical_flops, pj.profiled_flops)
+    assert dataclasses.astuple(pt.policy) == dataclasses.astuple(pj.policy)
+    assert pt.overhead == pj.overhead
+
+
+# ---------------------------------------------------------------------------
+# GEMM
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("M,N,K", GEMM_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemm_matches_reference(M, N, K, dtype):
+    jnp = _jnp()
+    from repro.core.tile_quant import TilePolicy as JTilePolicy
+    from repro.kernels import ops as jops
+    from repro.kernels.ref import ref_matmul as jref_matmul
+    rng = np.random.default_rng(M * 7 + N * 3 + K)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    xj, xt = _pair(rng.standard_normal((M, K)), jd, td)
+    yj, yt = _pair(rng.standard_normal((K, N)), jd, td)
+    out, prof = ops.matmul(xt, yt, policy=TilePolicy(128, 128, 128))
+    jout, jprof = jops.matmul(xj, yj, policy=JTilePolicy(128, 128, 128))
+    assert out.shape == (M, N) and out.dtype == td
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for want in (jout, jref_matmul(xj, yj)):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol * 10, atol=tol)
+    _same_profile(prof, jprof)
+    assert prof.profiled_flops >= prof.theoretical_flops
+
+
+def test_gemm_int8_is_exact():
+    jnp = _jnp()
+    from repro.core.tile_quant import TilePolicy as JTilePolicy
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(42)
+    xj, xt = _pair(rng.integers(-100, 100, (200, 300)), jnp.int8, torch.int8)
+    yj, yt = _pair(rng.integers(-100, 100, (300, 100)), jnp.int8, torch.int8)
+    out, prof = ops.matmul(xt, yt, policy=TilePolicy(128, 128, 128))
+    jout, jprof = jops.matmul(xj, yj, policy=JTilePolicy(128, 128, 128))
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+    np.testing.assert_array_equal(out.numpy(), ref_matmul(xt, yt).numpy())
+    _same_profile(prof, jprof)
+
+
+@pytest.mark.parametrize("M,N,K,dtype", [(300, 150, 200, "float32"),
+                                         (129, 257, 513, "bfloat16")])
+def test_gemm_cluster_policy_matches_reference(M, N, K, dtype):
+    """cm = cn = 2 pads M and N to whole 2-tile clusters (Eq. 4)."""
+    jnp = _jnp()
+    from repro.core.tile_quant import TilePolicy as JTilePolicy
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(1)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    xj, xt = _pair(rng.standard_normal((M, K)), jd, td)
+    yj, yt = _pair(rng.standard_normal((K, N)), jd, td)
+    out, prof = ops.matmul(xt, yt, policy=TilePolicy(128, 128, 128, cm=2,
+                                                     cn=2))
+    jout, jprof = jops.matmul(xj, yj, policy=JTilePolicy(128, 128, 128,
+                                                         cm=2, cn=2))
+    _same_profile(prof, jprof)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(jout, np.float32),
+                               rtol=tol * 10, atol=tol)
+    me, ne = -(-M // 256) * 256, -(-N // 256) * 256
+    assert prof.profiled_flops == 2 * me * ne * (-(-K // 128) * 128)
+
+
+@settings(max_examples=60)
+@given(st.integers(1, 5000), st.integers(1, 5000), st.integers(1, 5000),
+       st.sampled_from([128, 256, 512]), st.sampled_from([128, 256, 512]),
+       st.sampled_from([128, 256, 512]), st.integers(1, 2),
+       st.integers(1, 2))
+def test_grid_flops_equals_reference_and_closed_form(M, N, K, tm, tn, tk,
+                                                     cm, cn):
+    from repro.core.tile_quant import TilePolicy as JTilePolicy
+    from repro.kernels.gemm import grid_flops as jgrid_flops
+    pt = TilePolicy(tm, tn, tk, cm=cm, cn=cn)
+    got = gemm.grid_flops(M, N, K, pt)
+    assert got == jgrid_flops(M, N, K, JTilePolicy(tm, tn, tk, cm=cm, cn=cn))
+    assert got == profiled_flops(M, N, K, pt)
+    assert got >= 2 * M * N * K
+
+
+def test_gemm_padded_rejects_what_it_does_not_take():
+    pol = TilePolicy(128, 128, 128)
+    with pytest.raises(ValueError, match="not padded"):
+        gemm.gemm_padded(torch.ones((100, 128)), torch.ones((128, 128)), pol)
+    with pytest.raises(ValueError, match="do not chain"):
+        gemm.gemm_padded(torch.ones((128, 128)), torch.ones((256, 128)), pol)
+    with pytest.raises(ValueError, match="one dtype"):
+        gemm.gemm_padded(torch.ones((128, 128)),
+                         torch.ones((128, 128), dtype=torch.float64), pol)
+
+
+# ---------------------------------------------------------------------------
+# SSD
+# ---------------------------------------------------------------------------
+def _ssd_inputs(rng, BC, Q, nh, hd, ds):
+    x = rng.standard_normal((BC, Q, nh, hd)) * 0.5
+    dt = rng.uniform(0.001, 0.1, (BC, Q, nh))
+    A = -rng.uniform(0.5, 2.0, (nh,))
+    dacs = np.cumsum(dt.astype(np.float32) * A.astype(np.float32), axis=1)
+    b = rng.standard_normal((BC, Q, nh, ds)) * 0.3
+    c = rng.standard_normal((BC, Q, nh, ds)) * 0.3
+    return [a.astype(np.float32) for a in (x, dt, dacs, b, c)]
+
+
+@pytest.mark.parametrize("BC,Q,nh,hd,ds,hb", SSD_SHAPES)
+def test_ssd_intra_matches_reference(BC, Q, nh, hd, ds, hb):
+    jnp = _jnp()
+    from repro.kernels.ref import ref_ssd_intra as jref_ssd_intra
+    from repro.kernels.ssd_scan import ssd_intra_kernel as jssd_intra
+    arrs = _ssd_inputs(np.random.default_rng(BC * Q + nh), BC, Q, nh, hd, ds)
+    out = ssd_intra_kernel(*map(torch.from_numpy, arrs), head_block=hb)
+    jin = [jnp.asarray(a) for a in arrs]
+    for want in (jssd_intra(*jin, head_block=hb, interpret=True),
+                 jref_ssd_intra(*jin)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want),
+                                   rtol=1e-3, atol=1e-3)
+
+
+def test_ssd_intra_rejects_head_block_and_shapes():
+    arrs = [torch.from_numpy(a)
+            for a in _ssd_inputs(np.random.default_rng(0), 1, 8, 6, 4, 4)]
+    with pytest.raises(ValueError, match="head_block"):
+        ssd_intra_kernel(*arrs, head_block=4)
+    with pytest.raises(ValueError, match="expected x"):
+        ssd_intra_kernel(arrs[0], arrs[1][:, :4], *arrs[2:])
+
+
+@pytest.mark.parametrize("B,S,nh,hd,g,ds,Q,dtype", [
+    (2, 64, 4, 16, 2, 8, 16, "float32"),      # test_kernels.py's case
+    (1, 96, 6, 8, 3, 4, 32, "float32"),       # three chunks, 2 heads a group
+    (1, 64, 4, 16, 1, 16, 64, "bfloat16"),    # one chunk, the model's dtype
+])
+def test_ssd_full_path_matches_reference(B, S, nh, hd, g, ds, Q, dtype):
+    jnp = _jnp()
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(S + nh)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    xj, xt = _pair(rng.standard_normal((B, S, nh, hd)) * 0.5, jd, td)
+    dtj, dtt = _pair(rng.uniform(0.001, 0.1, (B, S, nh)), jnp.float32,
+                     torch.float32)
+    Aj, At = _pair(-rng.uniform(0.5, 2.0, (nh,)), jnp.float32, torch.float32)
+    Bj, Bt = _pair(rng.standard_normal((B, S, g, ds)) * 0.3, jd, td)
+    Cj, Ct = _pair(rng.standard_normal((B, S, g, ds)) * 0.3, jd, td)
+    yt = ops.ssd(xt, dtt, At, Bt, Ct, chunk=Q)
+    yj = jops.ssd(xj, dtj, Aj, Bj, Cj, chunk=Q)
+    assert yt.shape == (B, S, nh, hd) and yt.dtype == td
+    tol = 1e-3 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(yt.float().numpy(), np.asarray(yj, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_ssd_intra_inputs_are_what_the_kernel_takes(g):
+    """The kernel's inputs: contiguous, f32 dt/dacs, B/C in their groups
+    with no copy a head, dacs the within-chunk cumsum of dt·A."""
+    B, S, nh, hd, ds, Q = 2, 32, 4, 8, 4, 16
+    rng = np.random.default_rng(g)
+    x = torch.from_numpy(rng.standard_normal((B, S, nh, hd))).float()
+    dt = torch.from_numpy(rng.uniform(0.001, 0.1, (B, S, nh))).float()
+    A = -torch.from_numpy(rng.uniform(0.5, 2.0, (nh,))).float()
+    Bm = torch.from_numpy(rng.standard_normal((B, S, g, ds))).bfloat16()
+    xk, dtk, dacs, b, c = ops.ssd_intra_inputs(x, dt, A, Bm, Bm, chunk=Q)
+    assert all(t.is_contiguous() for t in (xk, dtk, dacs, b, c))
+    assert dtk.dtype == dacs.dtype == torch.float32
+    assert b.dtype == torch.bfloat16 and b.shape == (B * S // Q, Q, g, ds)
+    assert torch.equal(b, Bm.reshape(-1, Q, g, ds))
+    torch.testing.assert_close(dacs, torch.cumsum(dtk * A, dim=1))
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_ssd_intra_group_layout_is_the_per_head_broadcast(g):
+    """B/C in g groups give what the reference gives on its per-head
+    layout with head h holding group h // (nh / g)."""
+    jnp = _jnp()
+    from repro.kernels.ref import ref_ssd_intra as jref_ssd_intra
+    BC, Q, nh, hd, ds = 2, 16, 4, 8, 4
+    x, dt, dacs, b, c = _ssd_inputs(np.random.default_rng(g), BC, Q, nh, hd,
+                                    ds)
+    bg, cg = b[:, :, :g], c[:, :, :g]
+    heads = np.arange(nh) // (nh // g)
+    out = ssd_intra_kernel(*(torch.from_numpy(np.ascontiguousarray(a))
+                             for a in (x, dt, dacs, bg, cg)))
+    want = jref_ssd_intra(*(jnp.asarray(a) for a in
+                            (x, dt, dacs, bg[:, :, heads], cg[:, :, heads])))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_ssd_rejects_ragged_chunks():
+    x = torch.zeros((1, 48, 2, 4))
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ops.ssd(x, torch.zeros((1, 48, 2)), torch.zeros(2),
+                torch.zeros((1, 48, 1, 4)), torch.zeros((1, 48, 1, 4)),
+                chunk=32)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+def _qkv(seed, B, Sq, Sk, H, KV, hd, jdtype, tdtype):
+    rng = np.random.default_rng(seed)
+    return [_pair(rng.standard_normal(s), jdtype, tdtype)
+            for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal", FLASH_SHAPES + [
+    (2, 128, 200, 8, 2, 32, True),     # ragged Sk: the reference falls back
+    (2, 100, 100, 4, 2, 32, True),     # ragged Sq: the reference pads q
+    (1, 100, 200, 4, 4, 16, False),    # both ragged, cross-shaped
+])
+def test_flash_matches_reference(B, Sq, Sk, H, KV, hd, causal):
+    jnp = _jnp()
+    from repro.kernels import ops as jops
+    from repro.kernels.ref import ref_attention as jref_attention
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(Sq + Sk + H, B, Sq, Sk, H, KV, hd,
+                                        jnp.float32, torch.float32)
+    out = ops.flash(qt, kt, vt, causal=causal)
+    assert out.shape == (B, Sq, H, hd)
+    for want in (jops.flash(qj, kj, vj, causal=causal, bq=64, bkv=64),
+                 jref_attention(qj, kj, vj, causal=causal)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want),
+                                   rtol=1e-3, atol=1e-3)
+
+
+def test_flash_bf16_matches_reference():
+    jnp = _jnp()
+    from repro.kernels import ops as jops
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(3, 2, 128, 128, 4, 4, 32,
+                                        jnp.bfloat16, torch.bfloat16)
+    out = ops.flash(qt, kt, vt, causal=True)
+    want = jops.flash(qj, kj, vj, causal=True, bq=64, bkv=64)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=5e-2, atol=5e-2)
+
+
+def test_flash_rejects_bad_shapes():
+    q = torch.zeros((1, 8, 6, 16))
+    with pytest.raises(ValueError, match="multiple of KV"):
+        flash_attention_kernel(q, torch.zeros((1, 8, 4, 16)),
+                               torch.zeros((1, 8, 4, 16)), causal=True)
+    with pytest.raises(ValueError, match="alike"):
+        flash_attention_kernel(q, torch.zeros((1, 8, 2, 8)),
+                               torch.zeros((1, 8, 2, 8)), causal=True)
+
+
+def test_cpu_dispatch_never_counts_a_launch():
+    before = (gemm.gemm_padded.launches, gemm.gemm_padded.launched_flops,
+              ssd_intra_kernel.launches, flash_attention_kernel.launches)
+    ops.matmul(torch.ones((3, 5)), torch.ones((5, 2)))
+    ops.flash(torch.ones((1, 4, 2, 8)), torch.ones((1, 4, 2, 8)),
+              torch.ones((1, 4, 2, 8)), causal=True)
+    ssd_intra_kernel(*[torch.from_numpy(a) for a in
+                       _ssd_inputs(np.random.default_rng(0), 1, 8, 2, 4, 4)])
+    assert before == (gemm.gemm_padded.launches,
+                      gemm.gemm_padded.launched_flops,
+                      ssd_intra_kernel.launches,
+                      flash_attention_kernel.launches)
+
+
+# ---------------------------------------------------------------------------
+# the characterization entry point
+# ---------------------------------------------------------------------------
+def test_characterization_matches_reference_example(capsys):
+    _jnp()                                   # the example imports jax
+    spec = importlib.util.spec_from_file_location(
+        "jax_gemm_characterization", ROOT / "examples" /
+        "gemm_characterization.py")
+    jex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jex)
+    jex.main()
+    jlines = capsys.readouterr().out.strip().splitlines()
+    from repro_torch.examples import gemm_characterization as tex
+    results = tex.main(device="cpu")
+    tlines = capsys.readouterr().out.strip().splitlines()
+    assert tex.SHAPES == jex.SHAPES
+    n = 1 + len(tex.SHAPES)                  # header and one row a shape
+    assert tlines[:n] == jlines[:n]
+    from repro.kernels import ops as jops
+    jnp = _jnp()
+    rng = np.random.default_rng(0)
+    for (M, N, K), (out, prof) in zip(tex.SHAPES, results):
+        x = jnp.asarray(rng.standard_normal((M, K)), jnp.float32)
+        y = jnp.asarray(rng.standard_normal((K, N)), jnp.float32)
+        jout, jprof = jops.matmul(x, y)
+        _same_profile(prof, jprof)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout),
+                                   rtol=1e-3, atol=1e-4)
+
+
+def test_characterization_needs_a_card_unless_told():
+    from repro_torch.examples import gemm_characterization as tex
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tex.main()
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels themselves: only on the card
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, shape, dtype, dev, scale=1.0):
+    return (torch.randn(shape, generator=gen) * scale).to(dtype).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K", GEMM_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_gemm_kernel_matches_plain_version(cuda, M, N, K, dtype):
+    gen = torch.Generator().manual_seed(M + N + K)
+    if dtype == "int8":
+        x = torch.randint(-100, 100, (M, K), generator=gen, dtype=torch.int8)
+        y = torch.randint(-100, 100, (K, N), generator=gen, dtype=torch.int8)
+        x, y = x.to(cuda), y.to(cuda)
+    else:
+        x = _randn(gen, (M, K), getattr(torch, dtype), cuda)
+        y = _randn(gen, (K, N), getattr(torch, dtype), cuda)
+    n0, f0 = gemm.gemm_padded.launches, gemm.gemm_padded.launched_flops
+    out, prof = ops.matmul(x, y, policy=TilePolicy(128, 128, 128))
+    torch.cuda.synchronize()
+    assert gemm.gemm_padded.launches == n0 + 1
+    assert gemm.gemm_padded.launched_flops - f0 == prof.profiled_flops
+    want = ref_matmul(x, y)
+    if dtype == "int8":
+        assert torch.equal(out, want)
+    else:
+        tol = 1e-4 if dtype == "float32" else 2e-2
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol * 10,
+                                   atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("BC,Q,nh,hd,ds,hb", SSD_SHAPES + [
+    (2, 256, 8, 64, 128, 8)])          # a chunk of mamba2-780m's widths
+def test_ssd_kernel_matches_plain_version(cuda, BC, Q, nh, hd, ds, hb):
+    arrs = [torch.from_numpy(a).to(cuda) for a in
+            _ssd_inputs(np.random.default_rng(Q), BC, Q, nh, hd, ds)]
+    n0 = ssd_intra_kernel.launches
+    out = ssd_intra_kernel(*arrs, head_block=hb)
+    torch.cuda.synchronize()
+    assert ssd_intra_kernel.launches == n0 + 1
+    torch.testing.assert_close(out, ref_ssd_intra(*arrs), rtol=1e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal", FLASH_SHAPES + [
+    (2, 128, 200, 8, 2, 32, True), (2, 100, 100, 4, 2, 32, True),
+    (1, 300, 300, 6, 2, 128, True)])
+def test_flash_kernel_matches_plain_version(cuda, B, Sq, Sk, H, KV, hd,
+                                            causal):
+    gen = torch.Generator().manual_seed(Sq + Sk)
+    q = _randn(gen, (B, Sq, H, hd), torch.float32, cuda)
+    k = _randn(gen, (B, Sk, KV, hd), torch.float32, cuda)
+    v = _randn(gen, (B, Sk, KV, hd), torch.float32, cuda)
+    n0 = flash_attention_kernel.launches
+    out = ops.flash(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == n0 + 1
+    torch.testing.assert_close(out, ref_attention(q, k, v, causal=causal),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_kernel_group_layout_matches_plain_version(cuda, g):
+    BC, Q, nh, hd, ds = 2, 256, 8, 64, 128
+    x, dt, dacs, b, c = (torch.from_numpy(a).to(cuda) for a in _ssd_inputs(
+        np.random.default_rng(g), BC, Q, nh, hd, ds))
+    bg, cg = b[:, :, :g].contiguous(), c[:, :, :g].contiguous()
+    out = ssd_intra_kernel(x, dt, dacs, bg, cg)
+    torch.testing.assert_close(out, ref_ssd_intra(x, dt, dacs, bg, cg),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,dtype", [(1, torch.bfloat16), (2, torch.float32)])
+def test_ssd_path_on_the_card_matches_its_cpu_path(cuda, g, dtype):
+    """`ops.ssd` end to end, B/C in one group and in two, read in place
+    by the kernel; bf16 at the flash bf16 test's 5e-2, f32 at 1e-3."""
+    B, S, nh, hd, ds, Q = 1, 512, 8, 64, 128, 256
+    gen = torch.Generator().manual_seed(g)
+    args = [_randn(gen, (B, S, nh, hd), dtype, "cpu", 0.5),
+            torch.rand((B, S, nh), generator=gen) * 0.1 + 1e-3,
+            -(torch.rand(nh, generator=gen) * 15 + 1),
+            _randn(gen, (B, S, g, ds), dtype, "cpu", 0.3),
+            _randn(gen, (B, S, g, ds), dtype, "cpu", 0.3)]
+    n0 = ssd_intra_kernel.launches
+    got = ops.ssd(*(a.to(cuda) for a in args), chunk=Q)
+    torch.cuda.synchronize()
+    assert ssd_intra_kernel.launches == n0 + 1
+    tol = 1e-3 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got.cpu().float(),
+                               ops.ssd(*args, chunk=Q).float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_bf16_matches_plain_version(cuda, causal):
+    gen = torch.Generator().manual_seed(int(causal))
+    q = _randn(gen, (1, 520, 12, 128), torch.bfloat16, cuda)
+    k = _randn(gen, (1, 520, 4, 128), torch.bfloat16, cuda)
+    v = _randn(gen, (1, 520, 4, 128), torch.bfloat16, cuda)
+    out = flash_attention_kernel(q, k, v, causal=causal)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref_attention(
+        q, k, v, causal=causal).float(), rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.gpu
+def test_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.ones((128, 128), device=cuda)
+    with pytest.raises(TypeError, match="float32, bfloat16 or int8"):
+        gemm.gemm_padded(x.double(), x.double(), TilePolicy(128, 128, 128))
+    with pytest.raises(ValueError, match="contiguous"):
+        gemm.gemm_padded(x.t(), x[:, :128], TilePolicy(128, 128, 64))
+    q = torch.ones((1, 4, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="hd <= 128"):
+        flash_attention_kernel(q, q, q, causal=True)
+    arrs = [torch.from_numpy(a).to(cuda) for a in
+            _ssd_inputs(np.random.default_rng(0), 1, 8, 2, 4, 4)]
+    with pytest.raises(TypeError, match="float32 dt"):
+        ssd_intra_kernel(arrs[0], arrs[1].double(), *arrs[2:])
