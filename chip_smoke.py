@@ -19,7 +19,11 @@
    card against the CPU on the same draws).
 5. Holds the kernel API's kernels (GEMM, SSD intra-chunk, flash
    attention) against their plain versions at the JAX tests' shapes and
-   tolerances, ragged flash shapes included.
+   tolerances, ragged flash shapes included, and the TMA + wgmma paths
+   at shapes of their own: bf16 GEMMs whose K_eff (64, 128, 3,072) runs
+   the stage ring short of its depth and round it many times, and bf16
+   flash at hd 64 and 128, GQA groups of 1, 3 and 4, causal and full,
+   Sk = 200 and Sq = 100, each seen to launch the wgmma variant.
 6. Drives the kernel API's paths at full model width, each with the
    launch counts set to 0 just before and read just after: the GEMM
    characterization table and `ops.matmul` on the two dominant GEMMs of
@@ -35,6 +39,11 @@
    plain version (bf16 at full width to 2^-6 of the value plus 2^-5 of
    the row's RMS, a limit shown to reject a zeroed output and one with
    a key tile dropped) and timed beside its bound and a library call.
+   The per-variant launch counts must show every bf16 GEMM and the
+   llama-width flash call on the wgmma kernels and the fp32/int8 GEMMs
+   on the SIMT one; the redesigned kernels print their TFLOP/s, share
+   of bound, factor to the library call and the former kernel's time
+   beside.
 
 Prints the phase times and peak device memory, then one JSON line with
 every kernel's record and, last, `{"ok": true, "device": {...}}`.  Exits
@@ -69,6 +78,30 @@ FLASH_SHAPES = [(2, 128, 128, 8, 8, 32, True), (2, 128, 128, 8, 2, 32, True),
 SSD_SHAPES = [(4, 16, 4, 16, 8, 2), (2, 32, 8, 8, 16, 4), (1, 64, 2, 32, 4, 2)]
 GEMM_MODELS = ("granite-3-2b", "llama3.2-3b")   # the simulated fleet's
 RECORD_GEMM = ("llama3.2-3b", (4096, 8192, 3072), "bf16")
+#: times of the kernels the TMA + wgmma paths replaced, printed beside the
+#: new ones (NVIDIA H100 80GB HBM3, 700.00 W, this script's run of the
+#: former kernels; PERF.md): the bf16 GEMMs on the wmma kernel by (model,
+#: shape), and flash at llama3.2-3b width on the SIMT kernel
+WMMA_GEMM_BF16_MS = {
+    ("granite-3-2b", (4096, 2048, 2048)): 0.6461,
+    ("granite-3-2b", (4096, 8192, 2048)): 2.4846,
+    ("llama3.2-3b", (4096, 3072, 3072)): 1.3871,
+    ("llama3.2-3b", (4096, 8192, 3072)): 3.7678,
+    ("whisper-small", (1500, 768, 768)): 0.0983,
+    ("whisper-small", (1500, 3072, 768)): 0.2044}
+SIMT_FLASH_MS = 15.5825
+#: bf16 flash shapes of the tensor-core kernel: hd 64 and 128, G = H / KV
+#: of 1, 3 and 4, causal and full, ragged Sk (200) and Sq (100)
+TC_FLASH_SHAPES = [(2, Sq, Sk, 2 * G, 2, hd, causal)
+                   for hd in (64, 128) for G in (1, 3, 4)
+                   for causal in (True, False)
+                   for Sq, Sk in ((128, 200), (100, 100))]
+#: bf16 GEMMs whose K_eff (64, 128, 3,072) runs the 4-stage ring shorter
+#: than its depth, twice, and 48 times round; N_eff 256, 384 and 512 take
+#: N tiles of 256, 128 and 256
+TC_GEMM_SHAPES = [((128, 256, 64), (128, 128, 64)),
+                  ((200, 384, 100), (128, 128, 128)),
+                  ((256, 512, 3072), (128, 128, 128))]
 #: bf16 at full width: 2-4 ulps of the value, plus 4-8 ulps of its row's
 #: RMS for the elements that cancel to near 0
 BF16_RTOL, BF16_ROW_ATOL = 2 ** -6, 2 ** -5
@@ -517,6 +550,16 @@ def kernel_api_small(torch, dev) -> None:
                                TilePolicy(128, 128, 128), tol * 10, tol,
                                name)
             errs[str(dtype)] = max(errs.get(str(dtype), 0.0), err)
+    for (M, N, K), tiles in TC_GEMM_SHAPES:
+        name = f"gemm {M}x{N}x{K} bf16 tiles {tiles}"
+        n0 = gemm.gemm_padded.launches_by["wgmma_bf16"]
+        err, prof = gemm_case(arr((M, K), torch.bfloat16),
+                              arr((K, N), torch.bfloat16),
+                              TilePolicy(*tiles), 0.2, 2e-2, name)
+        check(gemm.gemm_padded.launches_by["wgmma_bf16"] == n0 + 1,
+              f"{name} did not run the wgmma path")
+        errs["bf16 wgmma K_eff 64-3072"] = max(
+            errs.get("bf16 wgmma K_eff 64-3072", 0.0), err)
     xi, yi = (torch.from_numpy(rng.integers(-100, 100, s)).to(torch.int8)
               .to(dev) for s in ((200, 300), (300, 100)))
     errs["int8"], _ = gemm_case(xi, yi, TilePolicy(128, 128, 128), 0, 0,
@@ -527,8 +570,9 @@ def kernel_api_small(torch, dev) -> None:
         "gemm 300x150x200 f32 cm=cn=2")
     check(prof.profiled_flops == 2 * 512 * 256 * 256,
           f"cm=cn=2 profile {prof.profiled_flops}")
-    print("gemm small shapes (5 shapes x f32/bf16, int8, cm=cn=2): max "
-          "|diff| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    print("gemm small shapes (5 shapes x f32/bf16, 3 bf16 K_eff of the "
+          "wgmma ring, int8, cm=cn=2): max |diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
     errs = {}
     ragged = [(2, 128, 200, 8, 2, 32, True), (2, 100, 100, 8, 2, 32, True)]
@@ -545,8 +589,25 @@ def kernel_api_small(torch, dev) -> None:
             errs[key] = max(errs.get(key, 0.0), close(
                 torch, f"flash {(B, Sq, Sk, H, KV, hd, causal)} {dtype}",
                 out, ref_attention(q, k, v, causal=causal), tol, tol))
-    print("flash small shapes (4 shapes + Sk=200 + Sq=100, each "
-          "f32 and bf16; every call launched the kernel): max |diff| "
+    n_tc = 0
+    for B, Sq, Sk, H, KV, hd, causal in TC_FLASH_SHAPES:
+        q, k, v = (arr(s, torch.bfloat16) for s in ((B, Sq, H, hd),
+                                                    (B, Sk, KV, hd),
+                                                    (B, Sk, KV, hd)))
+        n0 = fa.flash_attention_kernel.launches_by["wgmma_bf16"]
+        out = ops.flash(q, k, v, causal=causal)
+        n_tc += fa.flash_attention_kernel.launches_by["wgmma_bf16"] - n0
+        check(fa.flash_attention_kernel.launches_by["wgmma_bf16"] == n0 + 1,
+              f"bf16 flash {(B, Sq, Sk, H, KV, hd, causal)} did not run the "
+              "wgmma kernel")
+        key = f"bf16 wgmma hd {hd}"
+        errs[key] = max(errs.get(key, 0.0), close(
+            torch, f"flash {(B, Sq, Sk, H, KV, hd, causal)} bf16", out,
+            ref_attention(q, k, v, causal=causal), 5e-2, 5e-2))
+    print(f"flash small shapes (4 shapes + Sk=200 + Sq=100, each "
+          f"f32 and bf16, and {n_tc} bf16 shapes of the wgmma kernel: hd 64 "
+          "and 128, G 1/3/4, causal and full, Sk=200 and Sq=100; every call "
+          "launched its kernel): max |diff| "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
     err = 0.0
@@ -587,13 +648,20 @@ def kernel_api_paths(torch, dev, counters: dict) -> list:
                        ("flash_attention", flash_path)):
         for c in counters.values():
             c.launches = 0
+            for v in getattr(c, "launches_by", {}):
+                c.launches_by[v] = 0
         torch.cuda.synchronize()
         run = path(torch, dev)          # drives the path, returns a closure
         torch.cuda.synchronize()
         counts = {n: c.launches for n, c in counters.items()}
-        print(f"{name} path: launches {counts}")
+        by = dict(getattr(counters[name], "launches_by", {}))
+        print(f"{name} path: launches {counts}" + (
+            f"; {name} by variant {by}" if by else ""))
         check(counts[name] >= 1, f"the {name} path never launched its "
               "kernel")
+        want = getattr(run, "launches_by", None)
+        check(want is None or by == want, f"the {name} path launched its "
+              f"variants {by}, expected {want}")
         records.append({"name": name, "route": "cuda",
                         "launches": counts[name], **run()})
     print(f"peak device memory over the kernel API paths "
@@ -689,6 +757,7 @@ def gemm_path(torch, dev):
               f"{ratio!r} != {of} {factor!r}")
         print(f"gemm {model}: bf16 executed/theoretical {ratio!r} == "
               f"{of} {factor!r}")
+    n_bf16 = sum(c[2] == "bf16" for c in cases)
 
     def run() -> dict:
         from repro_torch.kernels.ref import ref_matmul
@@ -710,18 +779,28 @@ def gemm_path(torch, dev):
             (Me, Ke), Ne = xp.shape, yp.shape[1]
             b = bound((Me * Ke + Ke * Ne) * x.element_size()
                       + Me * Ne * out.element_size(), 2 * Me * Ne * Ke, kind)
-            print(f"gemm {model} ({M}, {N}, {K}) {kind}: max |diff| "
-                  f"{err:.3e}; kernel {ms:.4f} ms "
-                  f"({2 * Me * Ne * Ke / ms / 1e9:.1f} TFLOP/s), plain "
-                  f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+            print(f"gemm {model} ({M}, {N}, {K}) {kind} "
+                  f"[{gemm.variant(x.dtype)}]: max |diff| {err:.3e}; kernel "
+                  f"{ms:.4f} ms ({2 * Me * Ne * Ke / ms / 1e9:.1f} TFLOP/s, "
+                  f"{b['bound_ms'] / ms:.1%} of bound, {ms / lib_ms:.2f}x "
+                  f"the library), plain {plain_ms:.4f} ms, library "
+                  f"{lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']})" + (
+                      f"; former wmma kernel "
+                      f"{WMMA_GEMM_BF16_MS[model, (M, N, K)]:.4f} ms"
+                      if kind == "bf16" else ""))
             if (model, (M, N, K), kind) == RECORD_GEMM:
                 record = {"source": "src/repro_torch/kernels/csrc/gemm.cu",
                           "replaces": "src/repro/kernels/gemm.py:24",
+                          "variant": gemm.variant(x.dtype),
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           **b, "library_ms": lib_ms}
         check(record is not None, f"the path ran no {RECORD_GEMM} GEMM")
         return record
+    # the characterization's f32 GEMMs and the fp32/int8 ones take the SIMT
+    # path, every bf16 model and whisper GEMM the wgmma one
+    run.launches_by = {"wgmma_bf16": n_bf16,
+                       "simt": len(profs) + len(cases) - n_bf16}
     return run
 
 
@@ -839,14 +918,21 @@ def flash_path(torch, dev):
         n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         b = bound(n_bytes, n_ops, "bf16" if dtype == torch.bfloat16
                   else "fp32")
-        print(f"flash {cfg.name}: max |diff| {err:.3e}; kernel {ms:.4f} ms "
-              f"({n_ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-              f"library (SDPA) {lib_ms:.4f} ms, bound {b['bound_ms']:.4f} "
-              f"ms ({b['bound_by']}, {n_ops / 1e9:.1f} GFLOP)")
+        print(f"flash {cfg.name} [{fa.variant(dtype, hd)}]: max |diff| "
+              f"{err:.3e}; kernel {ms:.4f} ms ({n_ops / ms / 1e9:.1f} "
+              f"TFLOP/s, {b['bound_ms'] / ms:.1%} of bound, "
+              f"{ms / lib_ms:.2f}x SDPA; former SIMT kernel "
+              f"{SIMT_FLASH_MS:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, library (SDPA) {lib_ms:.4f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+              f"{n_ops / 1e9:.1f} GFLOP)")
         return {"source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:20",
+                "variant": fa.variant(dtype, hd),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
                 "library_ms": lib_ms}
+    # the one call at llama width takes the tensor-core kernel
+    run.launches_by = {"wgmma_bf16": 1, "simt": 0}
     return run
 
 

@@ -15,23 +15,40 @@
 // p.astype(v.dtype).  The causal mask is top-left aligned on global
 // indices (query i sees keys j <= i).
 //
-// What differs from the TPU kernel: one warp owns one (query i, head h)
-// row with its m, l and acc (hd / 32 dims a lane) in registers; the
-// warps of a block share one kv head, stage tiles of 32 keys and values
-// in shared memory, and score one key per lane.  Keys past Sk (the
-// ragged tail that the JAX wrapper sends to its reference instead) are
-// masked with -1e30 like any other masked score, so any Sk runs here.
-// For causal attention a row skips the tiles wholly above its diagonal,
-// which the TPU kernel visits to no effect: p = exp(-1e30 - m) = 0 and
-// the correction exp(m - m) = 1 there.
+// Two kernels, chosen by the wrapper by dtype and head dim:
+//
+//   * bf16 with hd 64 or 128 (flash_bf16_wgmma): one block of three
+//     warpgroups a (128 query rows, head, batch).  One producer thread
+//     loads Q once and two stages of 128-key K and V tiles by TMA into an
+//     mbarrier ring, so loads cost the consumers no instruction and the
+//     next tile arrives while this one is used; S = Q·Kᵀ and O += P·V
+//     are warpgroup wgmma products on the tensor cores (P from registers,
+//     V read in place through the transpose bit), with the online
+//     softmax on the accumulator registers between them.  Keys past Sk
+//     and above the diagonal are masked to -1e30 in registers; tiles
+//     wholly above it are never loaded.
+//   * everything else (f32; bf16 with another hd <= 128, such as
+//     phi-3-vision's 96 and zamba2's 112, which wgmma's 64-column boxes
+//     do not divide) (flash_kernel): one warp owns one (query i, head h)
+//     row with its m, l and acc (hd / 32 dims a lane) in registers; the
+//     warps of a block share one kv head, stage tiles of 32 keys and
+//     values in shared memory, and score one key per lane with a warp
+//     reduction, in f32 on the SM's cores.
+//
+// Both mask keys past Sk (the ragged tail that the JAX wrapper sends to
+// its reference instead) like any other masked score, so any Sk runs
+// here, and skip the tiles wholly above a row's diagonal, which the TPU
+// kernel visits to no effect: p = exp(-1e30 - m) = 0 and the correction
+// exp(m - m) = 1 there.
 //
 // Bound: operations.  At llama3.2-3b width (S = 4,096, H = 24, KV = 8,
 // hd = 128, causal, bf16) the kernel must do 103 GFLOP, 0.104 ms at 989
 // TFLOP/s, against 67 MB of q, k, v and out (0.020 ms at 3.35 TB/s).
-// This version does its products on the SM's cores in f32, with one warp
-// reduction a key, and is far from that bound.
+
+#include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -155,6 +172,217 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16, hd 64 or 128: TMA + wgmma ---------------------------------
+constexpr int kRows = 128;              // query rows of a block
+constexpr int kKv = 128;                // keys of a tile
+constexpr int kTcThreads = 384;         // 2 consumer warpgroups + producer
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+constexpr int tc_smem_bytes() {         // Q, 2 K stages, 2 V stages
+  return 5 * kRows * HD * 2 + 7 * 8 + 1024;
+}
+
+// One block owns 128 query rows of one head h of one batch b; warpgroups
+// 0 and 1 own 64 rows each, warpgroup 2 is the producer: one thread
+// loads Q once and keeps two stages of (K, V) tiles of 128 keys of kv
+// head h / G in flight, all by TMA through 4-D tensor maps (hd, heads,
+// S, B), so a box past Sq or Sk is zero-filled rather than read from the
+// next batch.  Per tile a consumer computes S = Q·Kᵀ (m64n128k16, both
+// K-major), masks and scales it in registers (log2 domain), updates its
+// rows' max and sum through the 4 threads that share a row, rounds
+// p = exp(s - m') to bf16 into the A operand of O += P·V (m64nHDk16, A
+// from registers, V MN-major through the transpose bit), and releases
+// the stage.  Causal query tiles run in reverse order, longest first.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
+                 int KV, float scale_log2, int causal) {
+  constexpr int kTile = kRows * HD * 2;  // bytes of a Q, K or V tile
+  constexpr int kBox = kRows * 128;      // bytes of one 64-column box
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align_1024(smem_raw);
+  uint8_t* sk = sq + kTile;              // 2 stages
+  uint8_t* sv = sk + 2 * kTile;          // 2 stages
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sv + 2 * kTile);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;           // [2]
+  uint64_t* v_full = bars + 3;           // [2]
+  uint64_t* empty = bars + 5;            // [2]
+
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
+  const int q0 = qt * kRows;
+  const int kv_end = causal ? min(Sk, q0 + kRows) : Sk;
+  const int n_kt = (kv_end + kKv - 1) / kKv;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 2);           // one arrive a consumer
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {                         // producer
+    regs_dealloc<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, kTile);
+#pragma unroll
+      for (int c = 0; c < HD / 64; ++c)
+        tma_load_4d(sq + c * kBox, &tq, q_full, 64 * c, h, q0, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt & 1;
+        if (kt >= 2) mbar_wait(&empty[s], ((kt >> 1) + 1) & 1);
+        mbar_expect_tx(&k_full[s], kTile);
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c)
+          tma_load_4d(sk + s * kTile + c * kBox, &tk, &k_full[s], 64 * c,
+                      kvh, kt * kKv, b);
+        mbar_expect_tx(&v_full[s], kTile);
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c)
+          tma_load_4d(sv + s * kTile + c * kBox, &tv, &v_full[s], 64 * c,
+                      kvh, kt * kKv, b);
+      }
+    }
+  } else {                               // consumers
+    regs_alloc<232>();
+    const int t = threadIdx.x % 128;
+    const int row = q0 + wg * 64 + 16 * (t / 32) + (t % 32) / 4;  // and +8
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+    const uint8_t* qa = sq + wg * 64 * 128;
+    mbar_wait(q_full, 0);
+
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt & 1;
+      const uint32_t ph = (kt >> 1) & 1;
+      const int k0 = kt * kKv;
+      float sc[kKv / 2];
+      mbar_wait(&k_full[s], ph);
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int off = (kk / 4) * kBox + 32 * (kk % 4);
+        wgmma_ss_n128<0>(sc, smem_desc(qa + off, 16, 1024),
+                         smem_desc(sk + s * kTile + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // scale into the log2 domain; mask keys past Sk and above the
+      // diagonal (only the tiles that reach either need the test)
+      const bool edge = k0 + kKv > Sk || (causal && k0 + kKv - 1 > q0);
+      float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int i = 0; i < kKv / 2; ++i) {
+        const int j = k0 + 8 * (i / 4) + 2 * (t % 4) + i % 2;
+        const int r = row + 8 * ((i / 2) % 2);
+        float v = sc[i] * scale_log2;
+        if (edge && (j >= Sk || (causal && j > r))) v = kNegInf;
+        sc[i] = v;
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], v);
+      }
+      float corr[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(kAll, mx[e], 1));
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(kAll, mx[e], 2));
+        corr[e] = exp2f(m_run[e] - mx[e]);
+        m_run[e] = mx[e];
+        l_run[e] *= corr[e];
+      }
+      uint32_t pa[kKv / 16][4];
+#pragma unroll
+      for (int i = 0; i < kKv / 2; i += 2) {
+        const int e = (i / 2) % 2;
+        const float p0 = exp2f(sc[i] - mx[e]);
+        const float p1 = exp2f(sc[i + 1] - mx[e]);
+        l_run[e] += p0 + p1;
+        pa[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i / 2) % 2];
+
+      mbar_wait(&v_full[s], ph);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKv / 16; ++kk) {
+        const uint64_t dv = smem_desc(sv + s * kTile + 2048 * kk, kBox, 1024);
+        if constexpr (HD == 128) wgmma_rs_n128(o, pa[kk], dv);
+        else wgmma_rs_n64(o, pa[kk], dv);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (t == 0) mbar_arrive(&empty[s]);
+    }
+
+    // the row sums over the 4 threads of a row, then one rounding
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      l_run[e] += __shfl_xor_sync(kAll, l_run[e], 1);
+      l_run[e] += __shfl_xor_sync(kAll, l_run[e], 2);
+      l_run[e] = 1.f / fmaxf(l_run[e], 1e-30f);
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 2; i += 2) {
+      const int e = (i / 2) % 2, r = row + 8 * e;
+      if (r < Sq) {
+        const int d = 8 * (i / 4) + 2 * (t % 4);
+        *reinterpret_cast<uint32_t*>(
+            out + ((static_cast<long long>(b) * Sq + r) * H + h) * HD + d) =
+            pack_bf16(o[i] * l_run[e], o[i + 1] * l_run[e]);
+      }
+    }
+  }
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
+              int Sq, int Sk, int H, int KV, float scale, int causal,
+              cudaStream_t stream) {
+  // (B, S, heads, hd) contiguous: dims innermost first, byte strides
+  CUtensorMap tq, tk, tv;
+  const cuuint32_t box[4] = {64, 1, kRows, 1};
+  const cuuint64_t dq[4] = {HD, static_cast<cuuint64_t>(H),
+                            static_cast<cuuint64_t>(Sq),
+                            static_cast<cuuint64_t>(B)};
+  const cuuint64_t sq[3] = {HD * 2, static_cast<cuuint64_t>(H) * HD * 2,
+                            static_cast<cuuint64_t>(Sq) * H * HD * 2};
+  const cuuint64_t dkv[4] = {HD, static_cast<cuuint64_t>(KV),
+                             static_cast<cuuint64_t>(Sk),
+                             static_cast<cuuint64_t>(B)};
+  const cuuint64_t skv[3] = {HD * 2, static_cast<cuuint64_t>(KV) * HD * 2,
+                             static_cast<cuuint64_t>(Sk) * KV * HD * 2};
+  int err = encode_bf16_map(&tq, q, 4, dq, sq, box);
+  if (!err) err = encode_bf16_map(&tk, k, 4, dkv, skv, box);
+  if (!err) err = encode_bf16_map(&tv, v, 4, dkv, skv, box);
+  if (err) return err;
+  constexpr int smem = tc_smem_bytes<HD>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bf16_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Sq + kRows - 1) / kRows, H, B);
+  flash_bf16_wgmma<HD><<<grid, kTcThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV,
+      scale * kLog2e, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // out = attention of q (B, Sq, H, hd), k/v (B, Sk, KV, hd), all
@@ -177,6 +405,31 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
     case kBF16:
       return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KV, hd,
                                    scale, causal, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same attention for bf16 q, k, v with hd 64 or 128, through the
+// TMA + wgmma kernel; B, H <= 65535, every pointer 16-byte aligned.
+// Returns the launch's cudaError_t, or hopper.cuh's codes when a tensor
+// map cannot be encoded.
+extern "C" int flash_attention_bf16_wgmma(const void* q, const void* k,
+                                          const void* v, void* out, int B,
+                                          int Sq, int Sk, int H, int KV,
+                                          int hd, float scale, int causal,
+                                          int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (KV <= 0 || H % KV || Sk < 1 || Sq < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 64:
+      return launch_tc<64>(q, k, v, out, B, Sq, Sk, H, KV, scale, causal, s);
+    case 128:
+      return launch_tc<128>(q, k, v, out, B, Sq, Sk, H, KV, scale, causal,
+                            s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,8 +5,9 @@ GQA by query-head groups that share one kv head.  A CUDA tensor launches
 `csrc/flash_attention.cu` (the counterpart of the TPU kernel
 `repro/kernels/flash_attention.py::_flash_kernel`; its source notes its
 design and bound), which masks the ragged edges of Sq and Sk itself, so
-it takes any sequence lengths; a CPU tensor takes the plain version,
-`ref.ref_attention`.
+it takes any sequence lengths.  bf16 with hd 64 or 128 runs its TMA +
+wgmma kernel, everything else its SIMT kernel (`variant`).  A CPU
+tensor takes the plain version, `ref.ref_attention`.
 """
 from __future__ import annotations
 
@@ -18,28 +19,42 @@ from repro_torch.kernels.ref import ref_attention
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HD = 128                        # dims a warp holds: 4 a lane
+_WGMMA_HD = (64, 128)                # head dims of the tensor-core path
 
 
-def _kernel():
+def variant(dtype: torch.dtype, hd: int) -> str:
+    """Which kernel (q's dtype, head dim) takes: bf16 with hd 64 or 128
+    the TMA + wgmma kernel, everything else (f32; bf16 with another
+    hd <= 128, such as phi-3-vision's 96 and zamba2's 112) the SIMT one."""
+    return "wgmma_bf16" if dtype == torch.bfloat16 and hd in _WGMMA_HD \
+        else "simt"
+
+
+def _kernel(name: str):
     from repro_torch.kernels import _build
-    fn = _build.load("flash_attention").flash_attention
+    fn = getattr(_build.load("flash_attention"), name)
     if fn.argtypes is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i32, p, p, p, p, i32, i32, i32, i32, i32, i32,
-                       ctypes.c_float, i32, i32, p]
+        head = [i32] if name == "flash_attention" else []
+        fn.argtypes = head + [p, p, p, p, i32, i32, i32, i32, i32, i32,
+                              ctypes.c_float, i32, i32, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
-    """One launch of the kernel on validated CUDA inputs; no count."""
+    """One launch of `variant`'s kernel on validated CUDA inputs; no
+    count."""
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
     out = torch.empty_like(q)
-    err = _kernel()(_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    out.data_ptr(), B, Sq, Sk, H, KV, hd, scale, int(causal),
-                    q.device.index,
-                    torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, H, KV, hd, scale, int(causal), q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if variant(q.dtype, hd) == "wgmma_bf16":
+        err = _kernel("flash_attention_bf16_wgmma")(*args)
+    else:
+        err = _kernel("flash_attention")(_CODES[q.dtype], *args)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -74,12 +89,20 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd > _MAX_HD or B * KV > 65535:
         raise ValueError(f"hd = {hd}, B·KV = {B * KV}: the kernel takes "
                          f"hd <= {_MAX_HD}, B·KV <= 65535")
+    path = variant(q.dtype, hd)
+    if path == "wgmma_bf16" and (H > 65535 or any(
+            t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError("the bf16 path takes H <= 65535 and, for its TMA "
+                         "loads, 16-byte-aligned q, k and v")
     if q.numel() == 0:
         return torch.empty_like(q)
     out = _launch(q, k, v, causal, float(scale))
     flash_attention_kernel.launches += 1
+    flash_attention_kernel.launches_by[path] += 1
     return out
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches, and those of each kernel (`variant`), since the counts
+#: were last set to 0
 flash_attention_kernel.launches = 0
+flash_attention_kernel.launches_by = {"wgmma_bf16": 0, "simt": 0}

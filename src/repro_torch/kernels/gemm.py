@@ -6,8 +6,9 @@ padded tiles are really computed: a CUDA tensor launches
 `csrc/gemm.cu` (the counterpart of the TPU kernel
 `repro/kernels/gemm.py::_gemm_kernel`; its source notes its design and
 bound), which executes exactly 2·M_eff·N_eff·K_eff operations, and
-`grid_flops` is the closed form of that count.  A CPU tensor takes the
-plain version, `ref.ref_matmul`.
+`grid_flops` is the closed form of that count.  bf16 operands take the
+kernel's TMA + wgmma path, f32 and int8 its SIMT path (`variant`).  A
+CPU tensor takes the plain version, `ref.ref_matmul`.
 
 Block shapes come from `repro_torch.core.tile_quant.TilePolicy`, the
 library-layer policy of the paper's §IV-A.
@@ -26,6 +27,26 @@ _KINDS = {torch.float32: (0, torch.float32),
           torch.bfloat16: (1, torch.bfloat16),
           torch.int8: (2, torch.int32)}
 _GRID_Y_MAX = 65535 * 128            # rows: 128 a block along grid.y
+#: the bf16 kernel's block: 128 rows, N tiles of 128 or 256, K stages of 64
+WGMMA_TILE = (128, 128, 64)
+
+
+def variant(dtype: torch.dtype) -> str:
+    """Which of the kernel's paths a working type takes: bf16 the TMA +
+    wgmma tensor-core path, f32 and int8 the SIMT path."""
+    return "wgmma_bf16" if dtype == torch.bfloat16 else "simt"
+
+
+def wgmma_tile_n(M: int, N: int, K: int) -> int:
+    """The bf16 path's N tile for padded operands (M, N, K): 256 where
+    N divides by 256, else 128.  Raises ValueError unless (M, N, K) are
+    multiples of `WGMMA_TILE`: the kernel walks exactly the tiles of the
+    padded grid and has no edge."""
+    tm, tn, tk = WGMMA_TILE
+    if M % tm or N % tn or K % tk:
+        raise ValueError(f"bf16 ({M}, {N}, {K}) is not a multiple of the "
+                         f"wgmma kernel's ({tm}, {tn}, {tk}) tiles")
+    return 256 if N % 256 == 0 else 128
 
 
 def grid_flops(M: int, N: int, K: int, policy: TilePolicy) -> int:
@@ -44,7 +65,7 @@ def _kernel():
     fn = _build.load("gemm").gemm
     if fn.argtypes is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i32, p, p, p, i32, i32, i32, i32, p]
+        fn.argtypes = [i32, p, p, p, i32, i32, i32, i32, i32, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -53,9 +74,10 @@ def _launch(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """One launch of the kernel on validated CUDA operands; no count."""
     (M, K), N = x.shape, y.shape[1]
     code, out_dtype = _KINDS[x.dtype]
+    bn = wgmma_tile_n(M, N, K) if x.dtype == torch.bfloat16 else 0
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     err = _kernel()(code, x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N,
-                    K, x.device.index,
+                    K, bn, x.device.index,
                     torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"gemm kernel launch failed: CUDA error {err}")
@@ -91,14 +113,22 @@ def gemm_padded(x: torch.Tensor, y: torch.Tensor,
         raise ValueError("the kernel takes contiguous operands")
     if M > _GRID_Y_MAX or max(N, K) >= 2 ** 31:
         raise ValueError(f"({M}, {N}, {K}) exceeds the kernel's grid")
-    if M == 0 or N == 0:
-        return torch.empty((M, N), dtype=_KINDS[x.dtype][1], device=x.device)
+    if x.dtype == torch.bfloat16:
+        wgmma_tile_n(M, N, K)
+        if x.data_ptr() % 16 or y.data_ptr() % 16:
+            raise ValueError("the bf16 path's TMA loads need 16-byte-aligned "
+                             "operands")
+    if M == 0 or N == 0 or K == 0:
+        return torch.zeros((M, N), dtype=_KINDS[x.dtype][1], device=x.device)
     out = _launch(x, y)
     gemm_padded.launches += 1
+    gemm_padded.launches_by[variant(x.dtype)] += 1
     gemm_padded.launched_flops += 2 * M * N * K
     return out
 
 
-#: kernel launches, and the FLOPs they executed, since last set to 0
+#: kernel launches, the FLOPs they executed and the launches of each path
+#: (`variant`), since last set to 0
 gemm_padded.launches = 0
 gemm_padded.launched_flops = 0
+gemm_padded.launches_by = {"wgmma_bf16": 0, "simt": 0}

@@ -20,7 +20,9 @@ torch = pytest.importorskip("torch")
 from _propcheck import given, settings, st  # noqa: E402
 
 from repro_torch.core.tile_quant import TilePolicy  # noqa: E402
+from repro_torch.core.tile_quant import pick_policy  # noqa: E402
 from repro_torch.core.tile_quant import profiled_flops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import gemm, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_kernel)
@@ -145,6 +147,41 @@ def test_gemm_padded_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="one dtype"):
         gemm.gemm_padded(torch.ones((128, 128)),
                          torch.ones((128, 128), dtype=torch.float64), pol)
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma_bf16"),
+                                        (torch.float32, "simt"),
+                                        (torch.int8, "simt")])
+def test_gemm_variant_is_chosen_by_dtype(dtype, want):
+    assert gemm.variant(dtype) == want
+
+
+@pytest.mark.parametrize("M,N,K,bn", [(128, 128, 64, 128), (128, 256, 64, 256),
+                                      (256, 384, 640, 128),
+                                      (4096, 8192, 3072, 256),
+                                      (1536, 768, 768, 256)])
+def test_wgmma_tile_n_takes_256_where_it_divides(M, N, K, bn):
+    assert gemm.wgmma_tile_n(M, N, K) == bn
+
+
+@pytest.mark.parametrize("M,N,K", [(100, 128, 64), (64, 128, 64),
+                                   (128, 192, 64), (128, 128, 96),
+                                   (128, 128, 32)])
+def test_wgmma_tile_n_rejects_what_is_not_a_whole_tile(M, N, K):
+    with pytest.raises(ValueError, match=r"\(128, 128, 64\) tiles"):
+        gemm.wgmma_tile_n(M, N, K)
+
+
+@settings(max_examples=60)
+@given(st.integers(1, 5000), st.integers(1, 5000), st.integers(1, 5000))
+def test_every_bf16_policy_pads_to_whole_wgmma_tiles(M, N, K):
+    """`pick_policy`'s bf16 choices all have tm, tn, tk >= 128, so the
+    operands `ops.matmul` pads for them always suit the wgmma path."""
+    pol = pick_policy(M, N, K, "bf16")
+    me = -(-M // (pol.tm * pol.cm)) * pol.tm * pol.cm
+    ne = -(-N // (pol.tn * pol.cn)) * pol.tn * pol.cn
+    ke = -(-K // pol.tk) * pol.tk
+    assert gemm.wgmma_tile_n(me, ne, ke) in (128, 256)
 
 
 # ---------------------------------------------------------------------------
@@ -303,18 +340,36 @@ def test_flash_rejects_bad_shapes():
                                torch.zeros((1, 8, 2, 8)), causal=True)
 
 
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 64, "wgmma_bf16"), (torch.bfloat16, 128, "wgmma_bf16"),
+    (torch.bfloat16, 96, "simt"),        # phi-3-vision's head dim
+    (torch.bfloat16, 112, "simt"),       # zamba2's
+    (torch.bfloat16, 32, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt")])
+def test_flash_variant_is_chosen_by_dtype_and_head_dim(dtype, hd, want):
+    assert fa.variant(dtype, hd) == want
+
+
 def test_cpu_dispatch_never_counts_a_launch():
     before = (gemm.gemm_padded.launches, gemm.gemm_padded.launched_flops,
-              ssd_intra_kernel.launches, flash_attention_kernel.launches)
+              ssd_intra_kernel.launches, flash_attention_kernel.launches,
+              dict(gemm.gemm_padded.launches_by),
+              dict(flash_attention_kernel.launches_by))
     ops.matmul(torch.ones((3, 5)), torch.ones((5, 2)))
+    ops.matmul(torch.ones((3, 5), dtype=torch.bfloat16),
+               torch.ones((5, 2), dtype=torch.bfloat16))
     ops.flash(torch.ones((1, 4, 2, 8)), torch.ones((1, 4, 2, 8)),
               torch.ones((1, 4, 2, 8)), causal=True)
+    ops.flash(*(torch.ones((1, 4, 2, 64), dtype=torch.bfloat16)
+                for _ in range(3)), causal=True)
     ssd_intra_kernel(*[torch.from_numpy(a) for a in
                        _ssd_inputs(np.random.default_rng(0), 1, 8, 2, 4, 4)])
     assert before == (gemm.gemm_padded.launches,
                       gemm.gemm_padded.launched_flops,
                       ssd_intra_kernel.launches,
-                      flash_attention_kernel.launches)
+                      flash_attention_kernel.launches,
+                      gemm.gemm_padded.launches_by,
+                      flash_attention_kernel.launches_by)
 
 
 # ---------------------------------------------------------------------------
@@ -473,6 +528,65 @@ def test_flash_kernel_bf16_matches_plain_version(cuda, causal):
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), ref_attention(
         q, k, v, causal=causal).float(), rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K,tiles,bn", [
+    ((128, 128, 64, (128, 128, 64), 128)),     # one stage: the ring unfilled
+    ((128, 256, 64, (128, 128, 64), 256)),
+    ((200, 384, 100, (128, 128, 128), 128)),   # two stages, padded M and K
+    ((256, 256, 300, (128, 128, 64), 256)),    # five: the ring wraps once
+    ((256, 512, 3072, (128, 128, 128), 256)),  # 48 stages
+    ((300, 384, 3000, (128, 128, 128), 128))])
+def test_gemm_bf16_runs_the_wgmma_path(cuda, M, N, K, tiles, bn):
+    """bf16 through TMA + wgmma at K_eff from 64 to 3,072 and N tiles of
+    128 and 256, against the plain version at the JAX test's tolerance."""
+    gen = torch.Generator().manual_seed(M + K)
+    x = _randn(gen, (M, K), torch.bfloat16, cuda)
+    y = _randn(gen, (K, N), torch.bfloat16, cuda)
+    pol = TilePolicy(*tiles)
+    me, ne = -(-M // pol.tm) * pol.tm, -(-N // pol.tn) * pol.tn
+    assert gemm.wgmma_tile_n(me, ne, -(-K // pol.tk) * pol.tk) == bn
+    by = dict(gemm.gemm_padded.launches_by)
+    out, prof = ops.matmul(x, y, policy=pol)
+    torch.cuda.synchronize()
+    assert gemm.gemm_padded.launches_by == {
+        "wgmma_bf16": by["wgmma_bf16"] + 1, "simt": by["simt"]}
+    torch.testing.assert_close(out.float(), ref_matmul(x, y).float(),
+                               rtol=0.2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk", [(100, 100), (128, 200), (300, 300)])
+@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_runs_the_wgmma_kernel(cuda, Sq, Sk, G, hd, causal):
+    """bf16 flash with hd 64 and 128 through TMA + wgmma, GQA groups of
+    1, 3 and 4, ragged Sq and Sk, against the plain version at 5e-2."""
+    gen = torch.Generator().manual_seed(Sq + Sk + G + hd)
+    B, KV = 2, 2
+    q = _randn(gen, (B, Sq, KV * G, hd), torch.bfloat16, cuda)
+    k = _randn(gen, (B, Sk, KV, hd), torch.bfloat16, cuda)
+    v = _randn(gen, (B, Sk, KV, hd), torch.bfloat16, cuda)
+    by = dict(flash_attention_kernel.launches_by)
+    out = ops.flash(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches_by == {
+        "wgmma_bf16": by["wgmma_bf16"] + 1, "simt": by["simt"]}
+    torch.testing.assert_close(out.float(), ref_attention(
+        q, k, v, causal=causal).float(), rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.gpu
+def test_bf16_paths_reject_what_their_tiles_do_not_cover(cuda):
+    x = torch.ones((64, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"\(128, 128, 64\) tiles"):
+        gemm.gemm_padded(x, x, TilePolicy(64, 64, 64))
+    buf = torch.ones(1 + 8 * 2 * 64, device=cuda, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 8, 2, 64)            # 2 bytes past an aligned start
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        flash_attention_kernel(q, q, q, causal=True)
 
 
 @pytest.mark.gpu
