@@ -21,9 +21,11 @@
    attention) against their plain versions at the JAX tests' shapes and
    tolerances, ragged flash shapes included, and the TMA + wgmma paths
    at shapes of their own: bf16 GEMMs whose K_eff (64, 128, 3,072) runs
-   the stage ring short of its depth and round it many times, and bf16
-   flash at hd 64 and 128, GQA groups of 1, 3 and 4, causal and full,
-   Sk = 200 and Sq = 100, each seen to launch the wgmma variant.
+   the stage ring short of its depth and round it many times, int8 GEMMs
+   at K_eff 128, 512, 640, 3,072 and 6,144 (bitwise), and bf16 flash at
+   hd 64 and 128, GQA groups of 1, 3 and 4, causal and full, Sk = 200 and
+   Sq = 100, each seen to launch its wgmma variant; and f32 GEMMs at
+   unpadded shapes, straight into the SIMT kernel's zero-filled edges.
 6. Drives the kernel API's paths at full model width, each with the
    launch counts set to 0 just before and read just after: the GEMM
    characterization table and `ops.matmul` on the two dominant GEMMs of
@@ -40,10 +42,12 @@
    the row's RMS, a limit shown to reject a zeroed output and one with
    a key tile dropped) and timed beside its bound and a library call.
    The per-variant launch counts must show every bf16 GEMM and the
-   llama-width flash call on the wgmma kernels and the fp32/int8 GEMMs
-   on the SIMT one; the redesigned kernels print their TFLOP/s, share
-   of bound, factor to the library call and the former kernel's time
-   beside.
+   llama-width flash call on the bf16 wgmma kernels, every int8 GEMM on
+   the s8 one and the fp32 GEMMs on the SIMT one; the redesigned kernels
+   print their TFLOP/s, share of bound, factor to the library call and
+   the former kernel's time beside, the int8 GEMMs their transpose's
+   time alone, and the FFN GEMM's int8 and fp32 paths the SM clock and
+   power draw under load, kernel and library call.
 
 Prints the phase times and peak device memory, then one JSON line with
 every kernel's record and, last, `{"ok": true, "device": {...}}`.  Exits
@@ -90,6 +94,18 @@ WMMA_GEMM_BF16_MS = {
     ("whisper-small", (1500, 768, 768)): 0.0983,
     ("whisper-small", (1500, 3072, 768)): 0.2044}
 SIMT_FLASH_MS = 15.5825
+#: times of the former untuned SIMT kernel on the fp32 and int8 model
+#: GEMMs (NVIDIA H100 80GB HBM3, 700.00 W, this script's run of it;
+#: PERF.md), printed beside the redesigned kernels'
+OLD_SIMT_GEMM_MS = {
+    ("granite-3-2b", (4096, 2048, 2048), "fp32"): 1.4812,
+    ("granite-3-2b", (4096, 8192, 2048), "fp32"): 5.7762,
+    ("llama3.2-3b", (4096, 3072, 3072), "fp32"): 3.3690,
+    ("llama3.2-3b", (4096, 8192, 3072), "fp32"): 8.7385,
+    ("granite-3-2b", (4096, 2048, 2048), "int8"): 1.7227,
+    ("granite-3-2b", (4096, 8192, 2048), "int8"): 6.4759,
+    ("llama3.2-3b", (4096, 3072, 3072), "int8"): 3.6918,
+    ("llama3.2-3b", (4096, 8192, 3072), "int8"): 9.7680}
 #: bf16 flash shapes of the tensor-core kernel: hd 64 and 128, G = H / KV
 #: of 1, 3 and 4, causal and full, ragged Sk (200) and Sq (100)
 TC_FLASH_SHAPES = [(2, Sq, Sk, 2 * G, 2, hd, causal)
@@ -102,6 +118,15 @@ TC_FLASH_SHAPES = [(2, Sq, Sk, 2 * G, 2, hd, causal)
 TC_GEMM_SHAPES = [((128, 256, 64), (128, 128, 64)),
                   ((200, 384, 100), (128, 128, 128)),
                   ((256, 512, 3072), (128, 128, 128))]
+#: int8 GEMMs whose K_eff (128, 512, 640, 3,072, 6,144) runs the ring of
+#: 128-deep stages short, exactly full, once round and many times round;
+#: N_eff 256 and 384 take N tiles of 256 and 128
+S8_GEMM_SHAPES = [(100, 256, 128), (200, 384, 500), (256, 256, 640),
+                  (300, 250, 3072), (128, 384, 6144)]
+#: f32 GEMMs straight into the kernel, unpadded: zero fill past M, N and
+#: K, and 4-byte copies where K or N is not a multiple of 4
+F32_RAGGED_SHAPES = [(129, 257, 513), (300, 150, 200), (1, 3, 5),
+                     (200, 136, 100)]
 #: bf16 at full width: 2-4 ulps of the value, plus 4-8 ulps of its row's
 #: RMS for the elements that cancel to near 0
 BF16_RTOL, BF16_ROW_ATOL = 2 ** -6, 2 ** -5
@@ -562,8 +587,29 @@ def kernel_api_small(torch, dev) -> None:
             errs.get("bf16 wgmma K_eff 64-3072", 0.0), err)
     xi, yi = (torch.from_numpy(rng.integers(-100, 100, s)).to(torch.int8)
               .to(dev) for s in ((200, 300), (300, 100)))
+    n0 = gemm.gemm_padded.launches_by["wgmma_s8"]
     errs["int8"], _ = gemm_case(xi, yi, TilePolicy(128, 128, 128), 0, 0,
                                 "gemm 200x100x300 int8")
+    check(gemm.gemm_padded.launches_by["wgmma_s8"] == n0 + 1,
+          "gemm 200x100x300 int8 did not run the wgmma s8 path")
+    for M, N, K in S8_GEMM_SHAPES:
+        name = f"gemm {M}x{N}x{K} int8"
+        xi, yi = (torch.from_numpy(rng.integers(-128, 128, s))
+                  .to(torch.int8).to(dev) for s in ((M, K), (K, N)))
+        n0 = gemm.gemm_padded.launches_by["wgmma_s8"]
+        err, _ = gemm_case(xi, yi, TilePolicy(128, 128, 128), 0, 0, name)
+        check(gemm.gemm_padded.launches_by["wgmma_s8"] == n0 + 1,
+              f"{name} did not run the wgmma s8 path")
+        errs["int8"] = max(errs["int8"], err)
+    for M, N, K in F32_RAGGED_SHAPES:
+        x, y = arr((M, K)), arr((K, N))
+        n0 = gemm.gemm_padded.launches_by["simt"]
+        out = gemm.gemm_padded(x, y, TilePolicy(1, 1, 1))
+        check(gemm.gemm_padded.launches_by["simt"] == n0 + 1,
+              f"f32 {M}x{N}x{K} did not run the SIMT path")
+        errs["f32 unpadded"] = max(errs.get("f32 unpadded", 0.0), close(
+            torch, f"gemm {M}x{N}x{K} f32 unpadded", out, ref_matmul(x, y),
+            1e-3, 1e-4 * max(1.0, K / 128)))
     errs["cm=cn=2"], prof = gemm_case(
         arr((300, 200)), arr((200, 150)),
         TilePolicy(128, 128, 128, cm=2, cn=2), 1e-3, 1e-4,
@@ -571,7 +617,8 @@ def kernel_api_small(torch, dev) -> None:
     check(prof.profiled_flops == 2 * 512 * 256 * 256,
           f"cm=cn=2 profile {prof.profiled_flops}")
     print("gemm small shapes (5 shapes x f32/bf16, 3 bf16 K_eff of the "
-          "wgmma ring, int8, cm=cn=2): max |diff| "
+          f"wgmma ring, {1 + len(S8_GEMM_SHAPES)} int8 of the s8 ring, "
+          f"{len(F32_RAGGED_SHAPES)} unpadded f32, cm=cn=2): max |diff| "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
     errs = {}
@@ -763,7 +810,7 @@ def gemm_path(torch, dev):
         from repro_torch.kernels.ref import ref_matmul
         library = {"bf16": torch.matmul, "fp32": torch.matmul,
                    "int8": torch._int_mm}
-        record = None
+        record, paths = None, {}
         while cases:
             model, (M, N, K), kind, x, y, out, prof = cases.pop(0)
             tol = {"int8": (0, 0), "fp32": (1e-3, 1e-4 * K / 128),
@@ -788,20 +835,78 @@ def gemm_path(torch, dev):
                   f"({b['bound_by']})" + (
                       f"; former wmma kernel "
                       f"{WMMA_GEMM_BF16_MS[model, (M, N, K)]:.4f} ms"
-                      if kind == "bf16" else ""))
+                      if kind == "bf16" else
+                      f"; former SIMT kernel "
+                      f"{OLD_SIMT_GEMM_MS[model, (M, N, K), kind]:.4f} ms"
+                      if (model, (M, N, K), kind) in OLD_SIMT_GEMM_MS
+                      else ""))
+            if (model, (M, N, K)) == RECORD_GEMM[:2] and kind != "bf16":
+                paths[kind] = {"variant": gemm.variant(x.dtype),
+                               "max_abs_err": err, "ms": ms,
+                               "library_ms": lib_ms, **b}
+                n = max(1, int(1000 / ms))         # ~1 s of queued work
+                kern = clocks_under(torch, lambda: gemm._launch(xp, yp), n)
+                lib = clocks_under(torch, lambda: library[kind](x, y), n)
+                print(f"  SM clock MHz, power W under load: kernel {kern}; "
+                      f"library {lib}")
+            if kind == "int8":
+                t_ms = transpose_ms(torch, yp)
+                print(f"  of which the transpose of B ({Ke}, {Ne}) to Bt "
+                      f"alone: {t_ms:.4f} ms, bound "
+                      f"{2 * Ke * Ne / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
             if (model, (M, N, K), kind) == RECORD_GEMM:
                 record = {"source": "src/repro_torch/kernels/csrc/gemm.cu",
                           "replaces": "src/repro/kernels/gemm.py:24",
                           "variant": gemm.variant(x.dtype),
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           **b, "library_ms": lib_ms}
-        check(record is not None, f"the path ran no {RECORD_GEMM} GEMM")
-        return record
-    # the characterization's f32 GEMMs and the fp32/int8 ones take the SIMT
-    # path, every bf16 model and whisper GEMM the wgmma one
-    run.launches_by = {"wgmma_bf16": n_bf16,
-                       "simt": len(profs) + len(cases) - n_bf16}
+        check(record is not None and set(paths) == {"fp32", "int8"},
+              f"the path ran no {RECORD_GEMM[:2]} GEMM of each type")
+        # the same FFN GEMM in the other working types, on their paths
+        return {**record, "paths": paths}
+    # every bf16 model and whisper GEMM takes the bf16 wgmma path, every
+    # int8 one the s8 path, the characterization's f32 GEMMs and the
+    # fp32 ones the SIMT path
+    n_int8 = sum(c[2] == "int8" for c in cases)
+    run.launches_by = {"wgmma_bf16": n_bf16, "wgmma_s8": n_int8,
+                       "simt": len(profs) + len(cases) - n_bf16 - n_int8}
     return run
+
+
+def clocks_under(torch, fn, reps: int) -> str:
+    """The SM clock and power draw that nvidia-smi reads while reps calls
+    of fn are queued on the card (a card under its power limit slows
+    down under load)."""
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        fn()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    torch.cuda.synchronize()
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else "not measured"
+
+
+def transpose_ms(torch, y) -> float:
+    """Device time of the int8 path's pre-pass alone (Bt = yᵀ by the
+    hand-written transpose of csrc/gemm.cu), checked against yᵀ."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    fn = _build.load("gemm").gemm_transpose_s8
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes, fn.restype = [p, p, i32, i32, i32, p], i32
+    K, N = y.shape
+    bt = torch.empty((N, K), dtype=torch.int8, device=y.device)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+
+    def launch():
+        rc = fn(y.data_ptr(), bt.data_ptr(), K, N, y.device.index, stream)
+        check(rc == 0, f"transpose launch failed: CUDA error {rc}")
+    launch()
+    check(torch.equal(bt, y.t()), f"the transpose of ({K}, {N}) is wrong")
+    return event_ms(torch, launch, REPS)
 
 
 def ssd_path(torch, dev):

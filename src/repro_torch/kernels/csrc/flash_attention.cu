@@ -367,9 +367,10 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
                              static_cast<cuuint64_t>(B)};
   const cuuint64_t skv[3] = {HD * 2, static_cast<cuuint64_t>(KV) * HD * 2,
                              static_cast<cuuint64_t>(Sk) * KV * HD * 2};
-  int err = encode_bf16_map(&tq, q, 4, dq, sq, box);
-  if (!err) err = encode_bf16_map(&tk, k, 4, dkv, skv, box);
-  if (!err) err = encode_bf16_map(&tv, v, 4, dkv, skv, box);
+  constexpr CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  int err = encode_tensor_map(&tq, bf16, q, 4, dq, sq, box);
+  if (!err) err = encode_tensor_map(&tk, bf16, k, 4, dkv, skv, box);
+  if (!err) err = encode_tensor_map(&tv, bf16, v, 4, dkv, skv, box);
   if (err) return err;
   constexpr int smem = tc_smem_bytes<HD>();
   cudaError_t e = cudaFuncSetAttribute(

@@ -1,21 +1,23 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels of
-// the kernel API (gemm.cu's bf16 path, flash_attention.cu's bf16 path):
-// raw PTX for mbarriers, TMA tensor loads, wgmma shared-memory
-// descriptors and products, and register rebalancing, plus a host
-// function that encodes a CUtensorMap through the driver entry point
+// the kernel API (gemm.cu's bf16 and int8 paths, flash_attention.cu's
+// bf16 path): raw PTX for mbarriers, TMA tensor loads, wgmma shared-memory
+// descriptors and products, register rebalancing and cp.async, plus a
+// host function that encodes a CUtensorMap through the driver entry point
 // (nothing here links libcuda).
 //
-// Shared-memory tiles are TMA boxes whose innermost dimension is 64 bf16
-// values (128 bytes), stored with the 128-byte swizzle, each box at a
-// 1024-byte-aligned address.  Such a box of R rows is R x 128 bytes; in
-// wgmma terms:
-//   * K-major operand (K contiguous, as A = X (M, K) row-major): rows are
-//     M (or N) and 8-row groups lie SBO = 1024 bytes apart; the k-th step
-//     of 16 values starts 32·k bytes into the row;
+// Shared-memory tiles are TMA boxes whose innermost dimension is 128
+// bytes (64 bf16 or 128 int8 values), stored with the 128-byte swizzle,
+// each box at a 1024-byte-aligned address.  Such a box of R rows is
+// R x 128 bytes; in wgmma terms:
+//   * K-major operand (K contiguous, as A = X (M, K) row-major, or the
+//     int8 path's Bt (N, K)): rows are M (or N) and 8-row groups lie
+//     SBO = 1024 bytes apart; the k-th step of 32 bytes (16 bf16 or 32
+//     int8 values) starts 32·k bytes into the row;
 //   * MN-major operand (N contiguous, as B = Y (K, N) row-major, read
-//     through the transpose bit): rows are K, 8-row groups lie
-//     SBO = 1024 bytes apart and the 64-column boxes along N lie LBO
-//     bytes apart; the k-th step of 16 rows starts 2048·k bytes in.
+//     through the transpose bit; bf16 only, wgmma has no transpose for
+//     8-bit types): rows are K, 8-row groups lie SBO = 1024 bytes apart
+//     and the 64-column boxes along N lie LBO bytes apart; the k-th step
+//     of 16 rows starts 2048·k bytes in.
 #pragma once
 
 #include <cuda.h>
@@ -127,6 +129,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 template <int R>
 __device__ __forceinline__ void regs_alloc() {
@@ -142,7 +149,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Accumulator layout of an m64nN wgmma, f32: thread t of the warpgroup
+// Accumulator layout of an m64nN wgmma, f32 (and s32, which has the same
+// fragment layout): thread t of the warpgroup
 // holds d[i] at row 16·(t/32) + (t%32)/4 + 8·((i/2)%2) and column
 // 8·(i/4) + 2·(t%4) + i%2.  The A operand in registers (bf16) holds, for
 // the k-th 16-column step, pairs (d[8k+2q], d[8k+2q+1]), q = 0..3, of an
@@ -209,6 +217,64 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// D (64 x 128, s32) += A (64 x 32, s8, smem) . B (32 x 128, s8, smem), both
+// K-major: wgmma takes 8-bit operands only so, with no transpose bit.
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 256, s32) += A (64 x 32, s8, smem) . B (32 x 256, s8, smem), both
+// K-major: wgmma takes 8-bit operands only so, with no transpose bit.
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 128, f32) += A (64 x 16, bf16 pairs in registers) . B (16 x 128,
 // smem, MN-major).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -251,6 +317,28 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+// cp.async: `bytes` (0 to the copy's size) read from global memory at
+// src into shared memory at dst, the rest of the copy zero-filled; 16-byte
+// copies bypass L1 (.cg), 4-byte ones cannot (.ca).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---- host side --------------------------------------------------------
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
@@ -263,12 +351,15 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
 constexpr int kErrNoEncoder = 1000;          // no cuTensorMapEncodeTiled
 constexpr int kErrEncode = 1001;             // 1001 + CUresult: it failed
 
-// A bf16 tensor map of `rank` dims (innermost first, extents in elements,
-// strides in bytes of dims 1..rank-1) with boxes of `box`, 128-byte
-// swizzle and zero fill out of bounds.  Returns 0 or an error code above.
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                           const cuuint64_t* dims, const cuuint64_t* strides,
-                           const cuuint32_t* box) {
+// A tensor map of element type `type` (BFLOAT16 or UINT8) and `rank` dims
+// (innermost first, extents in elements, strides in bytes of dims
+// 1..rank-1) with boxes of `box`, 128-byte swizzle and zero fill out of
+// bounds.  Returns 0 or an error code above.
+inline int encode_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                             const void* base, int rank,
+                             const cuuint64_t* dims,
+                             const cuuint64_t* strides,
+                             const cuuint32_t* box) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -286,7 +377,7 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
   }
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      map, type, rank, const_cast<void*>(base),
       dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -22,6 +22,8 @@ from _propcheck import given, settings, st  # noqa: E402
 from repro_torch.core.tile_quant import TilePolicy  # noqa: E402
 from repro_torch.core.tile_quant import pick_policy  # noqa: E402
 from repro_torch.core.tile_quant import profiled_flops  # noqa: E402
+from repro_torch.examples.gemm_characterization import (  # noqa: E402
+    SHAPES as CHARACTERIZATION_SHAPES)
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import gemm, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -151,7 +153,7 @@ def test_gemm_padded_rejects_what_it_does_not_take():
 
 @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma_bf16"),
                                         (torch.float32, "simt"),
-                                        (torch.int8, "simt")])
+                                        (torch.int8, "wgmma_s8")])
 def test_gemm_variant_is_chosen_by_dtype(dtype, want):
     assert gemm.variant(dtype) == want
 
@@ -182,6 +184,44 @@ def test_every_bf16_policy_pads_to_whole_wgmma_tiles(M, N, K):
     ne = -(-N // (pol.tn * pol.cn)) * pol.tn * pol.cn
     ke = -(-K // pol.tk) * pol.tk
     assert gemm.wgmma_tile_n(me, ne, ke) in (128, 256)
+
+
+#: the fleet models' dominant GEMMs (granite-3-2b, llama3.2-3b at 4,096
+#: tokens)
+FLEET_GEMMS = [(4096, 2048, 2048), (4096, 8192, 2048), (4096, 3072, 3072),
+               (4096, 8192, 3072)]
+
+
+@pytest.mark.parametrize("M,N,K", FLEET_GEMMS + CHARACTERIZATION_SHAPES
+                         + GEMM_SHAPES + [(1500, 768, 768), (1, 1, 1),
+                                          (4097, 8193, 3073)])
+def test_every_int8_policy_pads_to_whole_wgmma_tiles(M, N, K):
+    """`pick_policy`'s int8 choices (mxu_128/256/512, mxu_256_k512) all
+    have tm, tn, tk >= 128, so the operands `ops.matmul` pads for them
+    always suit the int8 wgmma path's (128, 128, 128) tiles."""
+    pol = pick_policy(M, N, K, "int8")
+    me = -(-M // (pol.tm * pol.cm)) * pol.tm * pol.cm
+    ne = -(-N // (pol.tn * pol.cn)) * pol.tn * pol.cn
+    ke = -(-K // pol.tk) * pol.tk
+    assert gemm.wgmma_tile_n(me, ne, ke, torch.int8) in (128, 256)
+
+
+@pytest.mark.parametrize("M,N,K,bn", [(128, 128, 128, 128),
+                                      (128, 256, 128, 256),
+                                      (256, 384, 640, 128),
+                                      (4096, 8192, 3072, 256)])
+def test_int8_wgmma_tile_n_takes_256_where_it_divides(M, N, K, bn):
+    assert gemm.wgmma_tile_n(M, N, K, torch.int8) == bn
+
+
+@pytest.mark.parametrize("M,N,K", [(64, 64, 64), (128, 128, 64),
+                                   (100, 128, 128), (128, 192, 128),
+                                   (128, 128, 192)])
+def test_int8_wgmma_tile_n_rejects_what_is_not_a_whole_tile(M, N, K):
+    """int8 stages are 128 values deep: K_eff 64 or 192, which the bf16
+    path takes, is no whole int8 tile."""
+    with pytest.raises(ValueError, match=r"int8 .* \(128, 128, 128\) tiles"):
+        gemm.wgmma_tile_n(M, N, K, torch.int8)
 
 
 # ---------------------------------------------------------------------------
@@ -550,10 +590,74 @@ def test_gemm_bf16_runs_the_wgmma_path(cuda, M, N, K, tiles, bn):
     by = dict(gemm.gemm_padded.launches_by)
     out, prof = ops.matmul(x, y, policy=pol)
     torch.cuda.synchronize()
-    assert gemm.gemm_padded.launches_by == {
-        "wgmma_bf16": by["wgmma_bf16"] + 1, "simt": by["simt"]}
+    assert gemm.gemm_padded.launches_by == {**by,
+                                            "wgmma_bf16": by["wgmma_bf16"] + 1}
     torch.testing.assert_close(out.float(), ref_matmul(x, y).float(),
                                rtol=0.2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K,tiles,bn", [
+    ((128, 128, 128, (128, 128, 128), 128)),    # K_eff 128: one stage
+    ((100, 256, 100, (128, 128, 128), 256)),    # padded M and K, one stage
+    ((200, 384, 512, (128, 128, 128), 128)),    # 4 stages: the ring full
+    ((256, 512, 600, (128, 128, 128), 256)),    # K_eff 640: the ring wraps
+    ((300, 250, 3072, (128, 128, 128), 256)),   # 24 stages, padded M and N
+    ((256, 384, 6144, (128, 128, 128), 128)),   # 48 stages
+    ((500, 600, 3000, (256, 256, 512), 256))])  # mxu_256_k512's tiles
+def test_gemm_int8_runs_the_wgmma_path(cuda, M, N, K, tiles, bn):
+    """int8 through the transpose and TMA + wgmma s8 at K_eff from 128
+    to 6,144 and N tiles of 128 and 256, bitwise equal to the plain
+    version; exactly one launch, of `wgmma_s8`."""
+    gen = torch.Generator().manual_seed(M + N + K)
+    x = torch.randint(-128, 128, (M, K), generator=gen, dtype=torch.int8)
+    y = torch.randint(-128, 128, (K, N), generator=gen, dtype=torch.int8)
+    x, y = x.to(cuda), y.to(cuda)
+    pol = TilePolicy(*tiles)
+    me, ne = -(-M // pol.tm) * pol.tm, -(-N // pol.tn) * pol.tn
+    assert gemm.wgmma_tile_n(me, ne, -(-K // pol.tk) * pol.tk,
+                             torch.int8) == bn
+    by = dict(gemm.gemm_padded.launches_by)
+    out, prof = ops.matmul(x, y, policy=pol)
+    torch.cuda.synchronize()
+    assert gemm.gemm_padded.launches_by == {**by,
+                                            "wgmma_s8": by["wgmma_s8"] + 1}
+    assert out.dtype == torch.int32 and torch.equal(out, ref_matmul(x, y))
+
+
+@pytest.mark.gpu
+def test_gemm_int8_sums_the_extremes_exactly(cuda):
+    """All -128 by all -128 at K_eff 3,072: every output is 3,072 · 2^14
+    = 50,331,648, so the transpose and the s32 sums are exact at the
+    largest products int8 has."""
+    x = torch.full((256, 3072), -128, dtype=torch.int8, device=cuda)
+    y = torch.full((3072, 384), -128, dtype=torch.int8, device=cuda)
+    out, _ = ops.matmul(x, y, policy=TilePolicy(128, 128, 128))
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full_like(out, 50_331_648))
+    assert torch.equal(out, ref_matmul(x, y))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K", GEMM_SHAPES + [
+    (128, 128, 16), (256, 256, 48),        # one and three slabs: short of
+    (200, 136, 100), (384, 256, 3072),     # the 4-stage ring; 7 and 192
+    (1, 3, 5)])
+def test_gemm_f32_runs_the_pipelined_simt_path(cuda, M, N, K):
+    """f32 straight into the kernel at unpadded shapes, so that its zero
+    fill past M, N and K and its 4-byte copies (K or N not a multiple of
+    4) run, and at K from one 16-deep slab to 192 of them; the JAX test's
+    rtol 1e-3 with its atol 1e-4 grown in K / 128, as the worst-case
+    rounding of an f32 sum grows."""
+    gen = torch.Generator().manual_seed(M * N + K)
+    x = _randn(gen, (M, K), torch.float32, cuda)
+    y = _randn(gen, (K, N), torch.float32, cuda)
+    by = dict(gemm.gemm_padded.launches_by)
+    out = gemm.gemm_padded(x, y, TilePolicy(1, 1, 1))
+    torch.cuda.synchronize()
+    assert gemm.gemm_padded.launches_by == {**by, "simt": by["simt"] + 1}
+    torch.testing.assert_close(out, ref_matmul(x, y), rtol=1e-3,
+                               atol=1e-4 * max(1.0, K / 128))
 
 
 @pytest.mark.gpu
@@ -596,6 +700,9 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         gemm.gemm_padded(x.double(), x.double(), TilePolicy(128, 128, 128))
     with pytest.raises(ValueError, match="contiguous"):
         gemm.gemm_padded(x.t(), x[:, :128], TilePolicy(128, 128, 64))
+    xi = torch.ones((64, 64), device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError, match=r"int8 .* \(128, 128, 128\) tiles"):
+        gemm.gemm_padded(xi, xi, TilePolicy(64, 64, 64))
     q = torch.ones((1, 4, 2, 256), device=cuda)
     with pytest.raises(ValueError, match="hd <= 128"):
         flash_attention_kernel(q, q, q, causal=True)
