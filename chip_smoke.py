@@ -6,14 +6,18 @@
    source, all at once) and prints the card, its power limit and the
    toolchain.
 2. Holds each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it (counts bitwise, sums rtol 1e-5).
+   shapes the main path gives it (counts bitwise, sums rtol 1e-5), and
+   the histogram kernel at an S that is not a multiple of 4 and on OFU
+   outside the edges and NaN.
 3. Drives the port's main path at full size through its public entry
    points: `simulate_fleet` on 64 jobs x 1,563 sampled devices (100,032
    device rows) x 24 h of 30 s scrapes -> `StreamingRollup.add_job`
    through the histogram kernel -> `scan_rollup`, which must flag the one
-   job with a 2.5x slowdown and no other.  Launch counts are set to 0
-   just before and read just after, so the run shows the path went
-   through the kernels.
+   job with a 2.5x slowdown and no other.  The kernel is then timed on
+   each job's grid, on the whole fleet in one call and, with geometric
+   edges that its uniform-grid guess misses, on one grid.  Launch counts
+   are set to 0 just before and read just after, so the run shows the
+   path went through the kernels.
 4. Checks the results by the port's own means (shapes, ranges, rollup
    weights and means against the grids, the engine's device half on the
    card against the CPU on the same draws).
@@ -24,8 +28,10 @@
    the stage ring short of its depth and round it many times, int8 GEMMs
    at K_eff 128, 512, 640, 3,072 and 6,144 (bitwise), and bf16 flash at
    hd 64 and 128, GQA groups of 1, 3 and 4, causal and full, Sk = 200 and
-   Sq = 100, each seen to launch its wgmma variant; and f32 GEMMs at
-   unpadded shapes, straight into the SIMT kernel's zero-filled edges.
+   Sq = 100, and bf16 SSD at Q 64-320, hd 64/128, ds 64-256, g 1, 2 and
+   nh and more work items than SMs, each seen to launch its wgmma
+   variant; and f32 GEMMs at unpadded shapes, straight into the SIMT
+   kernel's zero-filled edges.
 6. Drives the kernel API's paths at full model width, each with the
    launch counts set to 0 just before and read just after: the GEMM
    characterization table and `ops.matmul` on the two dominant GEMMs of
@@ -36,18 +42,22 @@
    closed form, and the bf16 executed/theoretical ratio == the tile
    factor (the fleet engine's, 1, for the aligned models; 1.024 for
    whisper's).
-   `ops.ssd` at mamba2-780m width (S = 4,096); `ops.flash` at
-   llama3.2-3b width (S = 4,096, causal, GQA).  Each is held against its
-   plain version (bf16 at full width to 2^-6 of the value plus 2^-5 of
-   the row's RMS, a limit shown to reject a zeroed output and one with
-   a key tile dropped) and timed beside its bound and a library call.
-   The per-variant launch counts must show every bf16 GEMM and the
-   llama-width flash call on the bf16 wgmma kernels, every int8 GEMM on
-   the s8 one and the fp32 GEMMs on the SIMT one; the redesigned kernels
-   print their TFLOP/s, share of bound, factor to the library call and
-   the former kernel's time beside, the int8 GEMMs their transpose's
-   time alone, and the FFN GEMM's int8 and fp32 paths the SM clock and
-   power draw under load, kernel and library call.
+   `ops.ssd` at mamba2-780m and at zamba2-7b width (S = 4,096, 48 heads
+   of one group, 112 heads of two); `ops.flash` at llama3.2-3b width
+   (S = 4,096, causal, GQA) and at phi-3-vision-4.2b width (hd 96, the
+   SIMT kernel).  Each is held against its plain version (bf16 at full
+   width to 2^-6 of the value plus 2^-5 of the row's RMS, a limit shown
+   to reject a zeroed output, one with a diagonal tile dropped and, for
+   SSD, one with the decays of the next head of the kernel's head block)
+   and timed beside its bound and a library call.  The per-variant
+   launch counts must show every bf16 GEMM, the llama-width flash call
+   and both SSD calls on the bf16 wgmma kernels, phi-3-vision's flash
+   call on the SIMT one, every int8 GEMM on the s8 one and the fp32
+   GEMMs on the SIMT one; the redesigned kernels print their TFLOP/s,
+   share of bound, factor to the library call or the former kernel's
+   time, the int8 GEMMs their transpose's time alone, and the FFN GEMM's
+   int8 and fp32 paths the SM clock and power draw under load, kernel
+   and library call.
 
 Prints the phase times and peak device memory, then one JSON line with
 every kernel's record and, last, `{"ok": true, "device": {...}}`.  Exits
@@ -71,9 +81,18 @@ FP32_FLOP_PER_S = 67e12        # H100 SXM, outside the tensor cores
 #: int8, f32 outside the tensor cores (what true-f32 work can use)
 PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": FP32_FLOP_PER_S, "int8": 1979e12}
 EDGES = np.linspace(0.0, 1.1, 129)          # StreamingRollup's default bins
+#: far from uniform, so the kernel's guess misses and its search decides
+GEOMETRIC_EDGES = np.geomspace(1e-3, 1.1, 129)
+#: the former histogram kernel's times, printed beside the new one's
+#: (NVIDIA H100 80GB HBM3, 700.00 W, this script's run of it; PERF.md):
+#: per job grid over the main path's 64, and the whole fleet in one call
+OLD_HIST_MS = {"grid": 0.0395, "fleet": 1.95}
 N_JOBS, ROWS_PER_JOB, DAY_S, SCRAPE_S, BUCKET_S = 64, 1563, 86400.0, 30.0, 300
 SLOW_JOB = "job17"
 REPS = 3                        # timed launches after one warm-up
+#: for a kernel of ~0.05 ms, whose first timed launch's ~0.04 ms of host
+#: work (the events bracket it) would add a quarter over 3 launches
+SHORT_REPS = 20
 # the JAX package's kernel tests' shapes (tests/test_kernels.py)
 GEMM_SHAPES = [(128, 128, 128), (256, 512, 384), (300, 150, 200),
                (1, 128, 128), (129, 257, 513)]
@@ -94,6 +113,9 @@ WMMA_GEMM_BF16_MS = {
     ("whisper-small", (1500, 768, 768)): 0.0983,
     ("whisper-small", (1500, 3072, 768)): 0.2044}
 SIMT_FLASH_MS = 15.5825
+#: the former SIMT SSD kernel at mamba2-780m width (the same card, PR 14's
+#: run 6; PERF.md), printed beside the tensor-core kernel's time
+SIMT_SSD_MS = {"mamba2-780m": 2.2543}
 #: times of the former untuned SIMT kernel on the fp32 and int8 model
 #: GEMMs (NVIDIA H100 80GB HBM3, 700.00 W, this script's run of it;
 #: PERF.md), printed beside the redesigned kernels'
@@ -112,6 +134,13 @@ TC_FLASH_SHAPES = [(2, Sq, Sk, 2 * G, 2, hd, causal)
                    for hd in (64, 128) for G in (1, 3, 4)
                    for causal in (True, False)
                    for Sq, Sk in ((128, 200), (100, 100))]
+#: bf16 SSD shapes of the tensor-core kernel, (BC, Q, nh, hd, g, ds): Q of
+#: a half, one and a half and two and a half strips, hd 64 and 128, ds 64
+#: to 256 (256: one stage), g 1, 2 and nh, 2 heads an item and 1 (3 heads
+#: a group), and more items than SMs (each block runs several)
+TC_SSD_SHAPES = [(1, 64, 2, 64, 1, 64), (50, 192, 6, 64, 2, 192),
+                 (2, 256, 8, 64, 1, 128), (2, 256, 6, 64, 6, 64),
+                 (1, 320, 2, 128, 2, 256), (70, 128, 4, 64, 1, 256)]
 #: bf16 GEMMs whose K_eff (64, 128, 3,072) runs the 4-stage ring shorter
 #: than its depth, twice, and 48 times round; N_eff 256, 384 and 512 take
 #: N tiles of 256, 128 and 256
@@ -181,9 +210,16 @@ def main() -> None:
         "unaligned_513x40": ((513, 40), np.arange(40) // 10, 4),
         "ragged_map_64x25": ((64, 25), np.repeat([0, 1, 2, 3], [3, 9, 9, 4]),
                              4),
+        "s_not_multiple_of_4_257x2879": ((257, 2879), np.arange(2879) // 10,
+                                         288),
+        # OFU below the first edge, above the last, and NaN
+        "out_of_range_nan_300x640": ((300, 640), np.arange(640) // 10, 64),
     }
     for name, (shape, col, nb) in small.items():
         tpa = rng.uniform(0, 1, shape).astype(np.float32)
+        if name == "out_of_range_nan_300x640":
+            tpa = rng.uniform(-0.5, 2.0, shape).astype(np.float32)
+            tpa.ravel()[rng.choice(tpa.size, 500, replace=False)] = np.nan
         clk = rng.uniform(900, 1558, shape).astype(np.float32)
         grid = (torch.from_numpy(tpa).to(dev), torch.from_numpy(clk).to(dev))
         rec = compare_hist(torch, fh, [grid], col, nb, 1 / 1558.0)
@@ -258,16 +294,26 @@ def main() -> None:
                        int(b_abs[-1] - b_abs[0]) + 1, inv_fmax)
     print(f"fleet_hist main path {ROWS_PER_JOB}x{grids[0][0].shape[1]} "
           f"(x{len(grids)} grids): counts bitwise equal, max |dsum| "
-          f"{rec['max_abs_err']:.3e}, kernel {rec['ms']:.4f} ms, plain "
-          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']})")
+          f"{rec['max_abs_err']:.3e}, kernel {rec['ms']:.4f} ms "
+          f"({rec['bound_ms'] / rec['ms']:.1%} of bound; former kernel "
+          f"{OLD_HIST_MS['grid']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     whole = compare_hist(torch, fh, [(torch.cat([g[0] for g in grids]),
                                       torch.cat([g[1] for g in grids]))],
                          b_abs - b_abs[0], int(b_abs[-1] - b_abs[0]) + 1,
                          inv_fmax, reps=5)
     print(f"fleet_hist whole fleet in one call {rows}x"
-          f"{grids[0][0].shape[1]}: kernel {whole['ms']:.4f} ms, plain "
-          f"{whole['plain_ms']:.4f} ms, bound {whole['bound_ms']:.4f} ms")
+          f"{grids[0][0].shape[1]}: kernel {whole['ms']:.4f} ms "
+          f"({whole['bound_ms'] / whole['ms']:.1%} of bound; former kernel "
+          f"{OLD_HIST_MS['fleet']:.4f} ms), plain {whole['plain_ms']:.4f} "
+          f"ms, bound {whole['bound_ms']:.4f} ms")
+    geo = compare_hist(torch, fh, grids[:1], b_abs - b_abs[0],
+                       int(b_abs[-1] - b_abs[0]) + 1, inv_fmax,
+                       edges=GEOMETRIC_EDGES)
+    print(f"fleet_hist geometric edges (the comparison search decides) "
+          f"{ROWS_PER_JOB}x{grids[0][0].shape[1]}: counts bitwise equal, "
+          f"max |dsum| {geo['max_abs_err']:.3e}, kernel {geo['ms']:.4f} ms, "
+          f"plain {geo['plain_ms']:.4f} ms")
     profile_phases(torch, specs, {"simulate": t1 - t0, "ingest": t2 - t1})
 
     kernels = [{"name": "fleet_hist", "route": "cuda",
@@ -302,7 +348,8 @@ def numpy_hist(tpa, clk, inv_fmax, col, nb):
     return hist
 
 
-def compare_hist(torch, fh, grids, col, nb, inv_fmax, reps=1) -> dict:
+def compare_hist(torch, fh, grids, col, nb, inv_fmax, reps=1,
+                 edges=EDGES) -> dict:
     """The kernel against its plain version on each grid (counts bitwise,
     sums rtol 1e-5), then both timed over the same grids with CUDA events:
     the kernel launch by launch into pre-zeroed outputs, the plain version
@@ -310,41 +357,44 @@ def compare_hist(torch, fh, grids, col, nb, inv_fmax, reps=1) -> dict:
     dev = grids[0][0].device
     err = 0.0
     for tpa, clk in grids:
-        h, s = fh.ofu_bucket_hist(tpa, clk, inv_fmax=inv_fmax, edges=EDGES,
+        h, s = fh.ofu_bucket_hist(tpa, clk, inv_fmax=inv_fmax, edges=edges,
                                   col_bucket=col, n_buckets=nb)
         hp, sp = fh.bucket_hist_torch(tpa, clk, inv_fmax=inv_fmax,
-                                      edges=EDGES, col_bucket=col,
+                                      edges=edges, col_bucket=col,
                                       n_buckets=nb)
         torch.cuda.synchronize()
         check(torch.equal(h.long(), hp), "kernel counts differ from the "
               f"plain version at {tuple(tpa.shape)}")
-        close = torch.isclose(s, sp, rtol=1e-5, atol=0.0)
+        close = torch.isclose(s, sp, rtol=1e-5, atol=0.0, equal_nan=True)
         check(bool(close.all()), "kernel sums differ from the plain "
               f"version at {tuple(tpa.shape)} beyond rtol 1e-5")
         err = max(err, float((h.long() - hp).abs().max()),
-                  float((s - sp).abs().max()))
+                  float((s - sp).nan_to_num().abs().max()))
 
-    edges = torch.from_numpy(EDGES.astype(np.float32)).to(dev)
-    col_t = torch.from_numpy(np.asarray(col, np.int32)).to(dev)
-    bins = len(EDGES) - 1
-    launch = fh._kernel()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    edges_t = torch.from_numpy(np.asarray(edges, np.float32)).to(dev)
+    plan, n_slots = fh.plan(col, nb)
+    plan_t = torch.from_numpy(plan).to(dev)
+    bins = len(edges) - 1
     hist = torch.zeros((len(grids), nb, bins), dtype=torch.int32, device=dev)
     sums = torch.zeros((len(grids), nb), dtype=torch.float64, device=dev)
+    # the C call's arguments, made once: the events then time the card,
+    # not the wrapper's Python (~0.03 ms a call, as long as one launch)
+    launch = fh._kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    calls = [(tpa.data_ptr(), clk.data_ptr(), *tpa.shape,
+              fh.rows_per_block(*tpa.shape), plan_t.data_ptr(), n_slots,
+              edges_t.data_ptr(), bins, float(np.float32(inv_fmax)),
+              hist[i].data_ptr(), sums[i].data_ptr(), dev.index, stream)
+             for i, (tpa, clk) in enumerate(grids)]
 
     def kernel_pass():
-        for i, (tpa, clk) in enumerate(grids):
-            D, S = tpa.shape
-            rc = launch(tpa.data_ptr(), clk.data_ptr(), D, S,
-                        fh.rows_per_block(D, S), col_t.data_ptr(),
-                        edges.data_ptr(), bins, float(np.float32(inv_fmax)),
-                        hist[i].data_ptr(), sums[i].data_ptr(), dev.index,
-                        stream)
+        for args in calls:
+            rc = launch(*args)
             check(rc == 0, f"fleet_hist launch failed: CUDA error {rc}")
 
     def plain_pass():
         for tpa, clk in grids:
-            fh.bucket_hist_torch(tpa, clk, inv_fmax=inv_fmax, edges=EDGES,
+            fh.bucket_hist_torch(tpa, clk, inv_fmax=inv_fmax, edges=edges,
                                  col_bucket=col, n_buckets=nb)
 
     ms = event_ms(torch, kernel_pass, reps) / len(grids)
@@ -547,7 +597,8 @@ def kernel_api_small(torch, dev) -> None:
     and tolerances (GEMM rtol 1e-3/atol 1e-4 f32, 0.2/2e-2 bf16, int8
     exact; flash 1e-3 f32, 5e-2 bf16; SSD 1e-3), plus ragged flash
     shapes (Sk = 200, which the reference's 64-key blocks do not divide,
-    and Sq = 100) that must launch the kernel."""
+    and Sq = 100) that must launch the kernel, and bf16 SSD shapes that
+    must launch the wgmma kernel (held with `close_rows`)."""
     from repro_torch.core.tile_quant import TilePolicy
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm, ops
@@ -670,6 +721,24 @@ def kernel_api_small(torch, dev) -> None:
                              ssd_intra_kernel(x, dt, dacs, b, c,
                                               head_block=hb),
                              ref_ssd_intra(x, dt, dacs, b, c), 1e-3, 1e-3))
+    n_tc, tc_err = 0, 0.0
+    for BC, Q, nh, hd, g, ds in TC_SSD_SHAPES:
+        x = arr((BC, Q, nh, hd), torch.bfloat16, 0.5)
+        dt = torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1),
+                                                 (BC, Q, nh)))).float().to(dev)
+        A = -torch.from_numpy(rng.uniform(1.0, 16.0, (nh,))).float().to(dev)
+        dacs = torch.cumsum(dt * A, dim=1)
+        b, c = (arr((BC, Q, g, ds), torch.bfloat16, 0.3) for _ in range(2))
+        n0 = ssd_intra_kernel.launches_by["wgmma_bf16"]
+        out = ssd_intra_kernel(x, dt, dacs, b, c)
+        check(ssd_intra_kernel.launches_by["wgmma_bf16"] == n0 + 1,
+              f"bf16 ssd_intra {(BC, Q, nh, hd, g, ds)} did not run the wgmma "
+              "kernel")
+        n_tc += 1
+        tc_err = max(tc_err, close_rows(
+            torch, f"ssd_intra {(BC, Q, nh, hd, g, ds)} bf16", out,
+            ref_ssd_intra(x, dt, dacs, b, c),
+            {"zeroed": torch.zeros_like(out)}))
     B, S, nh, hd, g, ds, Q = 2, 64, 4, 16, 2, 8, 16
     args = (arr((B, S, nh, hd), scale=0.5),
             torch.from_numpy(rng.uniform(0.001, 0.1, (B, S, nh))).float()
@@ -679,9 +748,11 @@ def kernel_api_small(torch, dev) -> None:
     path_err = close(torch, "ops.ssd small", ops.ssd(*args, chunk=Q),
                      ops.ssd(*(a.cpu() for a in args), chunk=Q).to(dev),
                      1e-3, 1e-3)
-    print(f"ssd small shapes (3 intra-chunk shapes; ops.ssd {B}x{S} against "
-          f"its plain path on the CPU): max |diff| intra {err:.3e}, path "
-          f"{path_err:.3e}")
+    print(f"ssd small shapes (3 intra-chunk shapes; {n_tc} bf16 shapes of "
+          "the wgmma kernel: Q 64-320, hd 64/128, ds 64-256, g 1/2/nh, 1-2 "
+          f"heads an item, each launched it; ops.ssd {B}x{S} against its "
+          f"plain path on the CPU): max |diff| intra {err:.3e}, wgmma "
+          f"{tc_err:.3e}, path {path_err:.3e}")
 
 
 def kernel_api_paths(torch, dev, counters: dict) -> list:
@@ -691,8 +762,10 @@ def kernel_api_paths(torch, dev, counters: dict) -> list:
     returns one kernel record a path."""
     records = []
     torch.cuda.reset_peak_memory_stats(dev)
-    for name, path in (("gemm", gemm_path), ("ssd_intra", ssd_path),
-                       ("flash_attention", flash_path)):
+    for name, path in (
+            ("gemm", gemm_path), ("ssd_intra", ssd_path),
+            ("ssd_intra", lambda t, d: ssd_path(t, d, "zamba2-7b")),
+            ("flash_attention", flash_path)):
         for c in counters.values():
             c.launches = 0
             for v in getattr(c, "launches_by", {}):
@@ -709,8 +782,14 @@ def kernel_api_paths(torch, dev, counters: dict) -> list:
         want = getattr(run, "launches_by", None)
         check(want is None or by == want, f"the {name} path launched its "
               f"variants {by}, expected {want}")
-        records.append({"name": name, "route": "cuda",
-                        "launches": counts[name], **run()})
+        rec = {"name": name, "route": "cuda", "launches": counts[name],
+               **run()}
+        if records and records[-1]["name"] == name:
+            # a second published width of the same kernel: under the
+            # first's record, by its model
+            records[-1].setdefault("paths", {})["zamba2-7b"] = rec
+        else:
+            records.append(rec)
     print(f"peak device memory over the kernel API paths "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
     return records
@@ -909,18 +988,21 @@ def transpose_ms(torch, y) -> float:
     return event_ms(torch, launch, REPS)
 
 
-def ssd_path(torch, dev):
-    """The SSD path at mamba2-780m width: `ops.ssd` on B = 1, S = 4,096
-    (16 chunks of 256), 48 heads of 64, one group of state 128, x/B/C in
-    the config's bf16, dt log-uniform in [1e-3, 1e-1] and A = -U(1, 16)
-    (Mamba2's initialisation ranges).  The closure holds the output
-    against the same entry point on CPU copies (its plain path) and the
-    kernel against its plain version on the path's inputs, with
-    `close_rows`, then times the kernel."""
+def ssd_path(torch, dev, model: str = "mamba2-780m"):
+    """The SSD path at a published width: `ops.ssd` on B = 1, S = 4,096
+    with the config's heads, head dim, groups, state and chunk (mamba2-780m:
+    16 chunks of 256, 48 heads of 64, one group of state 128; zamba2-7b:
+    112 heads of 64, two groups of state 64), x/B/C in the config's bf16,
+    dt log-uniform in [1e-3, 1e-1] and A = -U(1, 16) (Mamba2's
+    initialisation ranges).  The closure holds the output against the
+    same entry point on CPU copies (its plain path) and the kernel against
+    its plain version on the path's inputs, with `close_rows` (mutants:
+    zeroed, each chunk's diagonal 128-column tile dropped, and the decays
+    of the next head of the kernel's head block), then times the kernel."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ssd_scan
     from repro_torch.kernels.ref import ref_ssd_intra
-    cfg = get_config("mamba2-780m")
+    cfg = get_config(model)
     B, S = 1, 4096
     nh, hd, g, ds = (cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_ngroups,
                      cfg.ssm_state)
@@ -943,102 +1025,164 @@ def ssd_path(torch, dev):
     def run() -> dict:
         y_plain = ops.ssd(*(t.cpu() for t in (x, dt, A, Bm, Cm)),
                           chunk=cfg.ssm_chunk)
-        path_err = close_rows(torch, "ops.ssd at mamba2-780m width", y,
+        path_err = close_rows(torch, f"ops.ssd at {cfg.name} width", y,
                               y_plain.to(dev),
                               {"zeroed": torch.zeros_like(y)})
         inputs = ops.ssd_intra_inputs(x, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+        BC, Q = inputs[0].shape[:2]
+        path = ssd_scan.variant(dtype, Q, hd, ds)
+        hb = ssd_scan.wgmma_heads(hd, nh, g)
         got = ssd_scan._launch(*inputs)
         want = ref_ssd_intra(*inputs)
-        # a kernel that skips each chunk's last diagonal 64-column step:
-        # its last 64 rows lose what their own columns give them
-        tail = ref_ssd_intra(*(t[:, -64:] for t in inputs))
+        # a kernel that skips each chunk's last diagonal 128-column tile:
+        # its last 128 rows lose what their own columns give them
+        tail = ref_ssd_intra(*(t[:, -128:] for t in inputs))
         dropped = want.clone()
-        dropped[:, -64:] = (want[:, -64:].float() - tail.float()).to(dtype)
-        err = close_rows(torch, "ssd_intra at mamba2-780m width", got, want,
+        dropped[:, -128:] = (want[:, -128:].float() - tail.float()).to(dtype)
+        # a kernel that shares C.B^T over its head block but takes each
+        # head's decays from the next head of the block
+        nxt = torch.arange(nh, device=dev)
+        nxt = nxt - nxt % hb + (nxt % hb + 1) % hb if hb > 1 else \
+            (nxt + 1) % nh
+        x_, dt_, dacs_, b_, c_ = inputs
+        wrong = ref_ssd_intra(x_, dt_[..., nxt].contiguous(),
+                              dacs_[..., nxt].contiguous(), b_, c_)
+        err = close_rows(torch, f"ssd_intra at {cfg.name} width", got, want,
                          {"zeroed": torch.zeros_like(want),
-                          "diagonal-step-dropped": dropped})
-        ms = event_ms(torch, lambda: ssd_scan._launch(*inputs), REPS)
+                          "diagonal-tile-dropped": dropped,
+                          "wrong-head": wrong})
+        ms = event_ms(torch, ssd_launcher(torch, ssd_scan, inputs),
+                      SHORT_REPS)
         plain_ms = event_ms(torch, lambda: ref_ssd_intra(*inputs), REPS)
-        BC, Q = inputs[0].shape[:2]
         n_bytes = sum(t.numel() * t.element_size() for t in inputs) \
             + got.numel() * got.element_size()
-        # C.B and M.X over the causal pairs, and M's decay and scale
+        # C.B and M.X over the causal pairs, and M's decay and scale, a
+        # head (the TPU kernel's count; the wgmma kernel computes C.B^T
+        # once a block of `hb` heads, so this overstates its tensor work)
         n_ops = BC * nh * Q * (Q + 1) // 2 * (2 * ds + 2 * hd + 4)
         b = bound(n_bytes, n_ops, "bf16" if dtype == torch.bfloat16
                   else "fp32")
-        print(f"ssd_intra {cfg.name} ({BC}, {Q}, {nh}, {hd}, ds {ds}): max "
-              f"|diff| kernel {err:.3e}, path {path_err:.3e}; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
+        former = SIMT_SSD_MS.get(model)
+        print(f"ssd_intra {cfg.name} ({BC}, {Q}, {nh}, {hd}, g {g}, ds {ds}) "
+              f"[{path}, {hb} heads an item]: max |diff| kernel {err:.3e}, "
+              f"path {path_err:.3e}; kernel {ms:.4f} ms "
+              f"({n_ops / ms / 1e9:.1f} TFLOP/s as the bound counts, "
+              f"{b['bound_ms'] / ms:.1%} of bound"
+              + (f"; {former / ms:.1f}x faster than the former SIMT kernel's "
+                 f"{former:.4f} ms" if former else "")
+              + f"), plain {plain_ms:.4f} ms, library none, bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}, "
-              f"{n_bytes / 1e6:.1f} MB)")
+              f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.1f} GFLOP)")
         return {"source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                 "replaces": "src/repro/kernels/ssd_scan.py:23",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
-                "library_ms": None}
+                "variant": path, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, **b, "library_ms": None}
+    # the one intra-chunk call of the path takes the tensor-core kernel
+    run.launches_by = {"wgmma_bf16": 1, "simt": 0}
     return run
+
+
+def ssd_launcher(torch, ssd_scan, inputs):
+    """One launch of the bf16 wgmma SSD kernel into a fixed output, with
+    the C call's arguments made once, so that CUDA events time the card
+    and not the wrapper's Python (~0.04 ms a call, near the kernel's
+    time)."""
+    x, dt, dacs, b, c = inputs
+    BC, Q, nh, hd = x.shape
+    g, ds = b.shape[2:]
+    y = torch.empty_like(x)
+    fn = ssd_scan._kernel("ssd_intra_bf16_wgmma")
+    args = (x.data_ptr(), dt.data_ptr(), dacs.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr(), BC, Q, nh, hd, g, ds,
+            ssd_scan.wgmma_heads(hd, nh, g), x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream)
+
+    def launch():
+        rc = fn(*args)
+        check(rc == 0, f"ssd_intra launch failed: CUDA error {rc}")
+    return launch
 
 
 def flash_path(torch, dev):
     """The flash path at llama3.2-3b width: `ops.flash` on B = 1,
-    S = 4,096, 24 query heads over 8 kv heads of 128, causal, bf16.
-    The closure holds it against the plain version with `close_rows`
-    and times kernel, plain version and `scaled_dot_product_attention`."""
-    import torch.nn.functional as F
-
+    S = 4,096, 24 query heads over 8 kv heads of 128, causal, bf16; and at
+    phi-3-vision-4.2b width (32 heads of 96, causal, bf16), whose head dim
+    the tensor-core kernel's 64-column boxes do not divide, so it runs
+    the SIMT kernel.  The closure holds each against the plain version
+    with `close_rows` and times kernel, plain version and
+    `scaled_dot_product_attention`."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import ref_attention
-    cfg = get_config("llama3.2-3b")
-    B, S, H, KV, hd = 1, 4096, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    dtype = getattr(torch, cfg.dtype)
-    gen = torch.Generator(device=dev).manual_seed(2)
-    q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
-               for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
-    t0 = time.perf_counter()
-    out = ops.flash(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    print(f"flash path: ops.flash {cfg.name} ({B}, {S}, H {H}, KV {KV}, hd "
-          f"{hd}), causal, {dtype}: {(time.perf_counter() - t0) * 1e3:.2f} "
-          "ms wall")
+    calls = []
+    for seed, model in ((2, "llama3.2-3b"), (3, "phi-3-vision-4.2b")):
+        cfg = get_config(model)
+        B, S, H, KV, hd = (1, 4096, cfg.num_heads, cfg.num_kv_heads,
+                           cfg.head_dim)
+        dtype = getattr(torch, cfg.dtype)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                   for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+        t0 = time.perf_counter()
+        out = ops.flash(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        print(f"flash path: ops.flash {cfg.name} ({B}, {S}, H {H}, KV {KV}, "
+              f"hd {hd}), causal, {dtype}: "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} ms wall")
+        calls.append((cfg, q, k, v, out))
 
     def run() -> dict:
-        want = ref_attention(q, k, v, causal=True)
-        # a kernel that drops the last rows' diagonal 32-key tile: they
-        # see only the keys before it
-        dropped = want.clone()
-        dropped[:, -32:] = ref_attention(q[:, -32:], k[:, :-32], v[:, :-32],
-                                         causal=False)
-        err = close_rows(torch, "flash at llama3.2-3b width", out, want,
-                         {"zeroed": torch.zeros_like(want),
-                          "diagonal-tile-dropped": dropped})
-        ms = event_ms(torch, lambda: fa._launch(q, k, v, True, hd ** -0.5),
-                      REPS)
-        plain_ms = event_ms(torch, lambda: ref_attention(q, k, v,
-                                                         causal=True), REPS)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), REPS)
-        n_ops = 4 * B * H * hd * (S * (S + 1) // 2)
-        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        b = bound(n_bytes, n_ops, "bf16" if dtype == torch.bfloat16
-                  else "fp32")
-        print(f"flash {cfg.name} [{fa.variant(dtype, hd)}]: max |diff| "
-              f"{err:.3e}; kernel {ms:.4f} ms ({n_ops / ms / 1e9:.1f} "
-              f"TFLOP/s, {b['bound_ms'] / ms:.1%} of bound, "
-              f"{ms / lib_ms:.2f}x SDPA; former SIMT kernel "
-              f"{SIMT_FLASH_MS:.4f} ms), "
-              f"plain {plain_ms:.4f} ms, library (SDPA) {lib_ms:.4f} ms, "
-              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
-              f"{n_ops / 1e9:.1f} GFLOP)")
-        return {"source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-                "replaces": "src/repro/kernels/flash_attention.py:20",
-                "variant": fa.variant(dtype, hd),
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
-                "library_ms": lib_ms}
-    # the one call at llama width takes the tensor-core kernel
-    run.launches_by = {"wgmma_bf16": 1, "simt": 0}
+        (cfg, *llama), (cfg_phi, *phi) = calls
+        record = flash_record(torch, cfg, *llama, SIMT_FLASH_MS)
+        # the SIMT kernel at its model's width: the yardstick of its redesign
+        rec_phi = flash_record(torch, cfg_phi, *phi, None)
+        return {**record, "paths": {"phi-3-vision-4.2b": rec_phi}}
+    # the llama call takes the tensor-core kernel, phi-3-vision's the SIMT
+    run.launches_by = {"wgmma_bf16": 1, "simt": 1}
     return run
+
+
+def flash_record(torch, cfg, q, k, v, out, former_ms) -> dict:
+    """One full-width causal flash call against its plain version with
+    `close_rows` (mutants: zeroed, the last rows' diagonal 32-key tile
+    dropped), timed beside the plain version, SDPA and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import ref_attention
+    B, S, H, hd = q.shape
+    want = ref_attention(q, k, v, causal=True)
+    # a kernel that drops the last rows' diagonal 32-key tile: they see
+    # only the keys before it
+    dropped = want.clone()
+    dropped[:, -32:] = ref_attention(q[:, -32:], k[:, :-32], v[:, :-32],
+                                     causal=False)
+    err = close_rows(torch, f"flash at {cfg.name} width", out, want,
+                     {"zeroed": torch.zeros_like(want),
+                      "diagonal-tile-dropped": dropped})
+    del want, dropped
+    ms = event_ms(torch, lambda: fa._launch(q, k, v, True, hd ** -0.5), REPS)
+    plain_ms = event_ms(torch, lambda: ref_attention(q, k, v, causal=True),
+                        REPS)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), REPS)
+    n_ops = 4 * B * H * hd * (S * (S + 1) // 2)
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    b = bound(n_bytes, n_ops, "bf16" if q.dtype == torch.bfloat16
+              else "fp32")
+    path = fa.variant(q.dtype, hd)
+    print(f"flash {cfg.name} [{path}]: max |diff| "
+          f"{err:.3e}; kernel {ms:.4f} ms ({n_ops / ms / 1e9:.1f} "
+          f"TFLOP/s, {b['bound_ms'] / ms:.1%} of bound, "
+          f"{ms / lib_ms:.2f}x SDPA"
+          + (f"; former SIMT kernel {former_ms:.4f} ms" if former_ms else "")
+          + f"), plain {plain_ms:.4f} ms, library (SDPA) {lib_ms:.4f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+          f"{n_ops / 1e9:.1f} GFLOP)")
+    return {"source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:20",
+            "variant": path, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, **b, "library_ms": lib_ms}
 
 
 if __name__ == "__main__":

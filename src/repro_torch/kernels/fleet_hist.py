@@ -16,7 +16,9 @@ Two implementations of the one function:
   * `csrc/fleet_hist.cu`, a CUDA kernel for Hopper (the counterpart of
     the TPU kernel `repro/kernels/fleet_hist.py::_hist_kernel`; its
     source notes its design and bound).  Counts are exact int32, sums
-    float64 accumulated from per-block f32 partial sums.
+    float64 accumulated from per-block f32 partial sums.  Each block
+    privatises its counts by (bucket, bin) through a `plan` of the
+    column->bucket map made here.
   * `bucket_hist_torch`, the plain PyTorch version (searchsorted +
     bincount, int64 counts, float64 sums), for CPU tensors and as
     the kernel's check.
@@ -33,9 +35,11 @@ import ctypes
 import numpy as np
 import torch
 
-#: SMs on the card the row split is sized for (H100 SXM); more blocks
-#: only cost flush atomics, fewer leave SMs idle
-_SMS = 132
+#: SMs on the card the row split is sized for (H100 SXM), and the blocks
+#: of the kernel an SM holds at once; more blocks than a few waves only
+#: cost flushes, fewer leave SMs idle
+_SMS, _BLOCKS_PER_SM, _WAVES = 132, 8, 4
+_COLS = 128                          # columns of a block's tile
 
 
 def _edges_f32(edges) -> np.ndarray:
@@ -67,10 +71,30 @@ def bucket_hist_torch(tpa: torch.Tensor, clock: torch.Tensor, *,
 
 def rows_per_block(n_rows: int, n_cols: int) -> int:
     """Row split of the kernel's grid: enough (column tile, row tile)
-    blocks to fill the card four times over, at least 64 rows each."""
-    col_tiles = -(-n_cols // 32)
-    row_tiles = max(1, min(-(-4 * _SMS // col_tiles), n_rows // 64))
+    blocks for a few waves of the card, at least 64 rows each."""
+    col_tiles = -(-n_cols // _COLS)
+    target = _WAVES * _SMS * _BLOCKS_PER_SM
+    row_tiles = max(1, min(-(-target // col_tiles), n_rows // 64))
     return -(-n_rows // row_tiles)
+
+
+def plan(col_bucket, n_buckets: int) -> tuple:
+    """The kernel's view of a column->bucket map: each tile of 128
+    columns numbers the distinct buckets of its columns 0, 1, ... (their
+    slots, in bucket order).  Returns (int32 array of each column's slot
+    followed by each tile's slot->bucket table, -1 where a tile has fewer
+    slots, n_slots: the most slots a tile has)."""
+    col = np.asarray(col_bucket, np.int64)
+    tile = np.arange(col.size) // _COLS
+    n_tiles = int(tile[-1]) + 1
+    uniq, inv = np.unique(tile * n_buckets + col, return_inverse=True)
+    first = np.searchsorted(uniq, np.arange(n_tiles) * n_buckets)
+    n_slots = int(np.diff(np.append(first, uniq.size)).max())
+    table = np.full((n_tiles, n_slots), -1, np.int64)
+    utile = uniq // n_buckets
+    table[utile, np.arange(uniq.size) - first[utile]] = uniq % n_buckets
+    return (np.concatenate([inv.reshape(-1) - first[tile],
+                            table.reshape(-1)]).astype(np.int32), n_slots)
 
 
 def _kernel():
@@ -78,27 +102,25 @@ def _kernel():
     fn = _build.load("fleet_hist").fleet_hist
     if fn.argtypes is None:
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, i64, i64, i64, p, p, i32, ctypes.c_float, p,
-                       p, i32, p]
+        fn.argtypes = [p, p, i64, i64, i64, p, i32, p, i32, ctypes.c_float,
+                       p, p, i32, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(tpa, clock, edges, col, n_buckets, inv_fmax):
+def _launch(tpa, clock, edges, plan_t, n_slots, inv_fmax, hist, sums):
+    """One launch into zeroed hist (B, bins) int32 and sums (B,) float64
+    on validated CUDA inputs (edges f32 and `plan`'s array on the card);
+    no count."""
     D, S = tpa.shape
-    bins = edges.numel() - 1
-    hist = torch.zeros((n_buckets, bins), dtype=torch.int32,
-                       device=tpa.device)
-    sums = torch.zeros(n_buckets, dtype=torch.float64, device=tpa.device)
     err = _kernel()(
         tpa.data_ptr(), clock.data_ptr(), D, S, rows_per_block(D, S),
-        col.data_ptr(), edges.data_ptr(), bins,
+        plan_t.data_ptr(), n_slots, edges.data_ptr(), edges.numel() - 1,
         float(np.float32(inv_fmax)), hist.data_ptr(), sums.data_ptr(),
         tpa.device.index, torch.cuda.current_stream(tpa.device).cuda_stream)
     if err:
         raise RuntimeError(f"fleet_hist kernel launch failed: CUDA error "
                            f"{err}")
-    return hist, sums
 
 
 def ofu_bucket_hist(tpa: torch.Tensor, clock: torch.Tensor, *,
@@ -126,22 +148,24 @@ def ofu_bucket_hist(tpa: torch.Tensor, clock: torch.Tensor, *,
                          f"({tpa.shape[1]},)")
     if col.size and (col.min() < 0 or col.max() >= n_buckets):
         raise ValueError(f"col_bucket values must lie in [0, {n_buckets})")
-    col = torch.from_numpy(col).to(tpa.device)
     if tpa.device.type != "cuda":
         return bucket_hist_torch(tpa, clock, inv_fmax=inv_fmax, edges=edges,
-                                 col_bucket=col, n_buckets=n_buckets)
+                                 col_bucket=torch.from_numpy(col),
+                                 n_buckets=n_buckets)
     if tpa.dtype != torch.float32 or clock.dtype != torch.float32:
         raise TypeError("the kernel takes float32 tpa and clock")
     if not (tpa.is_contiguous() and clock.is_contiguous()):
         raise ValueError("the kernel takes contiguous tpa and clock")
     bins = len(edges) - 1
+    hist = torch.zeros((n_buckets, bins), dtype=torch.int32,
+                       device=tpa.device)
+    sums = torch.zeros(n_buckets, dtype=torch.float64, device=tpa.device)
     if tpa.numel() == 0:
-        return (torch.zeros((n_buckets, bins), dtype=torch.int32,
-                            device=tpa.device),
-                torch.zeros(n_buckets, dtype=torch.float64,
-                            device=tpa.device))
-    hist, sums = _launch(tpa, clock, torch.from_numpy(edges).to(tpa.device),
-                         col, n_buckets, inv_fmax)
+        return hist, sums
+    plan_np, n_slots = plan(col, n_buckets)
+    _launch(tpa, clock, torch.from_numpy(edges).to(tpa.device),
+            torch.from_numpy(plan_np).to(tpa.device), n_slots, inv_fmax,
+            hist, sums)
     ofu_bucket_hist.launches += 1
     return hist, sums
 

@@ -4,9 +4,11 @@ Per (batch·chunk, head) it computes the quadratic within-chunk term
 Y = ((C·Bᵀ) ∘ L(dA) ∘ dt) @ X, where L is the causal decay matrix from
 the within-chunk cumsum of dA.  A CUDA tensor launches `csrc/ssd_scan.cu`
 (the counterpart of the TPU kernel `repro/kernels/ssd_scan.py::_ssd_kernel`;
-its source notes its design and bound); a CPU tensor takes the plain
-version, `ref.ref_ssd_intra`.  The linear inter-chunk recurrence stays in
-plain PyTorch (`ops.ssd`).
+its source notes its design and bound): bf16 at the shapes `variant`
+names runs its TMA + wgmma kernel, which computes C·Bᵀ once for
+`wgmma_heads` heads of one group, everything else its SIMT kernel.  A
+CPU tensor takes the plain version, `ref.ref_ssd_intra`.  The linear
+inter-chunk recurrence stays in plain PyTorch (`ops.ssd`).
 
 B/C arrive in their groups: head h reads group h // (nh / g), where the
 reference takes them broadcast to one copy a head (g = nh here).
@@ -21,28 +23,59 @@ from repro_torch.kernels.ref import ref_ssd_intra
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HD, _MAX_DS = 128, 256          # what one block's shared memory holds
+_WGMMA_HD = (64, 128)                # head dims of the tensor-core kernel
+_WGMMA_MAX_Q = 1024                  # its column data in shared memory
 
 
-def _kernel():
+def variant(dtype: torch.dtype, Q: int, hd: int, ds: int) -> str:
+    """Which kernel (x's dtype, chunk Q, head dim, state dim) takes: bf16
+    with hd 64 or 128, ds a multiple of 64 up to 256 and Q a multiple of
+    64 up to 1,024 the TMA + wgmma kernel (its 64-column boxes and
+    64-row warpgroups tile them whole), everything else the SIMT one."""
+    return "wgmma_bf16" if (dtype == torch.bfloat16 and hd in _WGMMA_HD
+                            and ds % 64 == 0 and 64 <= ds <= _MAX_DS
+                            and Q % 64 == 0 and 64 <= Q <= _WGMMA_MAX_Q) \
+        else "simt"
+
+
+def wgmma_heads(hd: int, nh: int, g: int) -> int:
+    """Heads a work item of the tensor-core kernel serves from one C·Bᵀ:
+    2 at hd 64 where the heads of a group (nh / g) are even, else 1 (each
+    head's f32 Y takes hd / 2 registers a thread beside C·Bᵀ's 64)."""
+    return 2 if hd == 64 and (nh // g) % 2 == 0 else 1
+
+
+def _kernel(name: str):
     from repro_torch.kernels import _build
-    fn = _build.load("ssd_scan").ssd_intra
+    fn = getattr(_build.load("ssd_scan"), name)
     if fn.argtypes is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i32, p, p, p, p, p, p, i32, i32, i32, i32, i32, i32,
-                       i32, p]
+        if name == "ssd_intra":
+            fn.argtypes = [i32, p, p, p, p, p, p, i32, i32, i32, i32, i32,
+                           i32, i32, p]
+        else:
+            fn.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32, i32, i32,
+                           i32, i32, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(x, dt, dacs, b, c) -> torch.Tensor:
-    """One launch of the kernel on validated CUDA inputs; no count."""
+    """One launch of `variant`'s kernel on validated CUDA inputs; no
+    count."""
     BC, Q, nh, hd = x.shape
     _, _, g, ds = b.shape
     y = torch.empty_like(x)
-    err = _kernel()(_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
-                    dacs.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
-                    BC, Q, nh, hd, g, ds, x.device.index,
-                    torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), dt.data_ptr(), dacs.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if variant(x.dtype, Q, hd, ds) == "wgmma_bf16":
+        err = _kernel("ssd_intra_bf16_wgmma")(
+            *ptrs, BC, Q, nh, hd, g, ds, wgmma_heads(hd, nh, g),
+            x.device.index, stream)
+    else:
+        err = _kernel("ssd_intra")(_CODES[x.dtype], *ptrs, BC, Q, nh, hd, g,
+                                   ds, x.device.index, stream)
     if err:
         raise RuntimeError(f"ssd_intra kernel launch failed: CUDA error {err}")
     return y
@@ -55,8 +88,8 @@ def ssd_intra_kernel(x, dt, dacs, b, c, *, head_block: int = 8):
     (g = nh: the reference's per-head layout).  Returns the intra-chunk
     output (BC, Q, nh, hd) in x's dtype.  `head_block` is the reference's
     head blocking: nh must be a multiple of min(head_block, nh), as
-    there; the card's kernel blocks by (chunk, head, 64-row strip)
-    whatever it is.
+    there; the card's kernels group heads by their own rule
+    (`wgmma_heads`, or one head a block) whatever it is.
     """
     BC, Q, nh, hd = x.shape
     g, ds = b.shape[-2:]
@@ -83,12 +116,19 @@ def ssd_intra_kernel(x, dt, dacs, b, c, *, head_block: int = 8):
         raise ValueError(f"hd = {hd}, ds = {ds}, nh = {nh}: the kernel "
                          f"takes hd <= {_MAX_HD}, ds <= {_MAX_DS}, "
                          "nh <= 65535")
+    path = variant(x.dtype, Q, hd, ds)
+    if path == "wgmma_bf16" and any(t.data_ptr() % 16 for t in (x, b, c)):
+        raise ValueError("the bf16 path takes, for its TMA loads, "
+                         "16-byte-aligned x, b and c")
     if x.numel() == 0:
         return torch.empty_like(x)
     y = _launch(x, dt, dacs, b, c)
     ssd_intra_kernel.launches += 1
+    ssd_intra_kernel.launches_by[path] += 1
     return y
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches, and those of each kernel (`variant`), since the counts
+#: were last set to 0
 ssd_intra_kernel.launches = 0
+ssd_intra_kernel.launches_by = {"wgmma_bf16": 0, "simt": 0}

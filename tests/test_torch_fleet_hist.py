@@ -13,7 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.fleet_hist import (bucket_hist_torch,  # noqa: E402
-                                            ofu_bucket_hist, rows_per_block)
+                                            ofu_bucket_hist, plan,
+                                            rows_per_block)
 
 EDGES = np.linspace(0.0, 1.1, 129)
 
@@ -102,6 +103,35 @@ def test_rows_per_block_covers_every_row(D, S):
     assert rpb >= min(D, 64)
 
 
+MAPS = {
+    "main_path": (np.arange(2880) // 10, 288),
+    "ragged": (np.repeat([0, 1, 2, 3], [3, 9, 9, 4]), 4),
+    "unaligned_tail": (np.arange(300) // 7, 43),   # S % 128 != 0
+    "random": (np.random.default_rng(5).integers(0, 200, 400), 200),
+    "one_column": (np.zeros(1, int), 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MAPS))
+def test_plan_maps_every_column_to_its_bucket(name):
+    """The kernel's plan: per 128-column tile, each column's slot indexes
+    a table row that holds its bucket; slots number a tile's distinct
+    buckets densely from 0, in bucket order; unused slots hold -1."""
+    col, nb = MAPS[name]
+    arr, n_slots = plan(col, nb)
+    S = col.size
+    slot, table = arr[:S], arr[S:].reshape(-1, n_slots)
+    tile = np.arange(S) // 128
+    assert arr.dtype == np.int32 and table.shape[0] == tile[-1] + 1
+    np.testing.assert_array_equal(table[tile, slot], col)
+    for t in range(table.shape[0]):
+        mine = np.unique(col[tile == t])
+        np.testing.assert_array_equal(table[t, :mine.size], mine)
+        assert (table[t, mine.size:] == -1).all()
+    assert n_slots == max(np.unique(col[tile == t]).size
+                          for t in range(table.shape[0]))
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel itself: only on the card
 # ---------------------------------------------------------------------------
@@ -142,3 +172,77 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="float32"):
         ofu_bucket_hist(t.t().contiguous().double(),
                         t.t().contiguous().double(), **kw)
+
+
+def _geometric_edges():
+    return np.geomspace(1e-3, 1.1, 129)
+
+
+def _binning_case(name):
+    """(tpa, clock, inv_fmax, edges, col_bucket, n_buckets) of one case
+    that the comparison binning must get right bitwise."""
+    rng = np.random.default_rng(len(name))
+    if name == "geometric_edges":          # far from uniform: the search
+        tpa, clk = _grid(300, 2880, 7)
+        return tpa, clk, 1 / 1558.0, _geometric_edges(), \
+            np.arange(2880) // 10, 288
+    if name == "out_of_range":              # below the first, above the last
+        tpa = rng.uniform(-0.5, 2.0, (256, 640)).astype(np.float32)
+        return tpa, np.full_like(tpa, 1558.0), 1 / 1558.0, EDGES, \
+            np.arange(640) // 10, 64
+    if name == "nan_and_inf":               # NaN counts every edge
+        tpa, clk = _grid(128, 512, 8)
+        tpa.ravel()[rng.choice(tpa.size, 300, replace=False)] = np.nan
+        tpa[5, :7] = np.inf
+        tpa[6, :7] = -np.inf
+        return tpa, clk, 1 / 1558.0, EDGES, np.arange(512) // 10, 52
+    if name == "s_not_multiple_of_4":       # the 4-byte loads
+        tpa, clk = _grid(257, 2879, 9)
+        return tpa, clk, 1 / 1558.0, _geometric_edges(), \
+            np.arange(2879) // 10, 288
+    if name == "ragged_map_geometric":
+        tpa, clk = _grid(64, 25, 1)
+        return tpa, clk, 1 / 1558.0, _geometric_edges(), \
+            np.repeat([0, 1, 2, 3], [3, 9, 9, 4]), 4
+    if name == "random_map":                # up to 128 slots a tile
+        tpa, clk = _grid(96, 400, 10)
+        return tpa, clk, 1 / 1558.0, EDGES, rng.integers(0, 200, 400), 200
+    raise KeyError(name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["geometric_edges", "out_of_range",
+                                  "nan_and_inf", "s_not_multiple_of_4",
+                                  "ragged_map_geometric", "random_map"])
+def test_kernel_bins_by_comparison(cuda, case):
+    """Counts bitwise equal to the plain version's for non-uniform edges
+    (the guess misses and the search decides), values outside the edges,
+    NaN and infinities, an S that is not a multiple of 4 and column maps
+    that are ragged or random; sums within rtol 1e-5 (NaN where the
+    plain sum is NaN)."""
+    tpa, clk, inv_fmax, edges, col, nb = _binning_case(case)
+    kw = dict(inv_fmax=inv_fmax, edges=edges, col_bucket=col, n_buckets=nb)
+    t, c = torch.from_numpy(tpa).to(cuda), torch.from_numpy(clk).to(cuda)
+    h, s = ofu_bucket_hist(t, c, **kw)
+    hp, sp = bucket_hist_torch(t, c, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(h.long(), hp)
+    assert int(h.sum()) == tpa.size
+    torch.testing.assert_close(s, sp, rtol=1e-5, atol=0.0, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_kernel_takes_a_grid_that_is_not_16_byte_aligned(cuda):
+    """A contiguous view one float into its storage: the kernel's 4-byte
+    loads, counts bitwise as ever."""
+    tpa, clk = _grid(200, 640, 11)
+    kw = dict(inv_fmax=1 / 1558.0, edges=EDGES,
+              col_bucket=np.arange(640) // 10, n_buckets=64)
+    t, c = (torch.cat([torch.zeros(1), torch.from_numpy(a).ravel()])
+            .to(cuda)[1:].view(200, 640) for a in (tpa, clk))
+    assert t.is_contiguous() and t.data_ptr() % 16
+    h, s = ofu_bucket_hist(t, c, **kw)
+    hp, sp = bucket_hist_torch(t, c, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(h.long(), hp)
+    torch.testing.assert_close(s, sp, rtol=1e-5, atol=0.0)

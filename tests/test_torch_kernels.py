@@ -25,7 +25,7 @@ from repro_torch.core.tile_quant import profiled_flops  # noqa: E402
 from repro_torch.examples.gemm_characterization import (  # noqa: E402
     SHAPES as CHARACTERIZATION_SHAPES)
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import gemm, ops  # noqa: E402
+from repro_torch.kernels import gemm, ops, ssd_scan  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_kernel)
 from repro_torch.kernels.ref import (ref_attention, ref_matmul,  # noqa: E402
@@ -329,6 +329,47 @@ def test_ssd_rejects_ragged_chunks():
                 chunk=32)
 
 
+@pytest.mark.parametrize("dtype,Q,hd,ds,want", [
+    (torch.bfloat16, 256, 64, 128, "wgmma_bf16"),   # mamba2-780m
+    (torch.bfloat16, 256, 64, 64, "wgmma_bf16"),    # zamba2-7b
+    (torch.bfloat16, 256, 128, 256, "wgmma_bf16"),
+    (torch.bfloat16, 64, 64, 128, "wgmma_bf16"),
+    (torch.bfloat16, 48, 64, 128, "simt"),          # Q not a multiple of 64
+    (torch.bfloat16, 256, 96, 128, "simt"),         # hd not 64 or 128
+    (torch.bfloat16, 256, 64, 32, "simt"),          # ds under a 64-wide box
+    (torch.bfloat16, 256, 64, 320, "simt"),         # ds past 256
+    (torch.bfloat16, 2048, 64, 128, "simt"),        # Q past 1,024
+    (torch.float32, 256, 64, 128, "simt"),
+    (torch.float32, 64, 128, 64, "simt")])
+def test_ssd_variant_is_chosen_by_dtype_and_shape(dtype, Q, hd, ds, want):
+    assert ssd_scan.variant(dtype, Q, hd, ds) == want
+
+
+@pytest.mark.parametrize("hd,nh,g,want", [
+    (64, 48, 1, 2),          # mamba2-780m: 48 heads share one group
+    (64, 112, 2, 2),         # zamba2-7b: 56 heads a group
+    (64, 6, 2, 1),           # 3 heads a group: only one head a block divides
+    (64, 6, 6, 1),           # one head a group
+    (128, 8, 1, 1)])         # hd 128: one head's Y fills the registers
+def test_ssd_wgmma_heads_divide_each_group(hd, nh, g, want):
+    hb = ssd_scan.wgmma_heads(hd, nh, g)
+    assert hb == want and (nh // g) % hb == 0
+
+
+@pytest.mark.parametrize("dtype,Q,hd,ds", [
+    (torch.bfloat16, 64, 64, 64),        # a shape of the wgmma kernel
+    (torch.float32, 16, 8, 4)])
+def test_ssd_cpu_dispatch_counts_no_variant(dtype, Q, hd, ds):
+    x, dt, dacs, b, c = (torch.from_numpy(a) for a in _ssd_inputs(
+        np.random.default_rng(Q), 1, Q, 2, hd, ds))
+    x, b, c = (t.to(dtype) for t in (x, b, c))
+    before = (ssd_intra_kernel.launches, dict(ssd_intra_kernel.launches_by))
+    out = ssd_intra_kernel(x, dt, dacs, b, c)
+    assert out.dtype == dtype and out.shape == x.shape
+    assert before == (ssd_intra_kernel.launches,
+                      ssd_intra_kernel.launches_by)
+
+
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
@@ -498,9 +539,11 @@ def test_ssd_kernel_matches_plain_version(cuda, BC, Q, nh, hd, ds, hb):
     arrs = [torch.from_numpy(a).to(cuda) for a in
             _ssd_inputs(np.random.default_rng(Q), BC, Q, nh, hd, ds)]
     n0 = ssd_intra_kernel.launches
+    by = dict(ssd_intra_kernel.launches_by)
     out = ssd_intra_kernel(*arrs, head_block=hb)
     torch.cuda.synchronize()
     assert ssd_intra_kernel.launches == n0 + 1
+    assert ssd_intra_kernel.launches_by == {**by, "simt": by["simt"] + 1}
     torch.testing.assert_close(out, ref_ssd_intra(*arrs), rtol=1e-3,
                                atol=1e-3)
 
@@ -555,6 +598,54 @@ def test_ssd_path_on_the_card_matches_its_cpu_path(cuda, g, dtype):
     torch.testing.assert_close(got.cpu().float(),
                                ops.ssd(*args, chunk=Q).float(), rtol=tol,
                                atol=tol)
+
+
+def _close_rows(got, want):
+    """chip_smoke.py's full-width bf16 limit: |got - want| <= 2^-6·|want|
+    + 2^-5 of the RMS of want's row along hd."""
+    w = want.double()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    bad = (got.double() - w).abs() > 2 ** -6 * w.abs() + 2 ** -5 * rms
+    assert int(bad.sum()) == 0, f"{int(bad.sum())} of {w.numel()} elements"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("BC,Q,nh,hd,g,ds", [
+    (1, 64, 2, 64, 1, 64),       # one strip, one warpgroup with rows
+    (3, 128, 4, 64, 2, 128),     # BC 3, two groups of two heads
+    (2, 256, 8, 64, 1, 128),     # mamba2-780m's chunk, head and state
+    (1, 256, 4, 64, 2, 64),      # zamba2-7b's
+    (2, 256, 6, 64, 6, 64),      # g = nh: one head an item
+    (1, 256, 4, 128, 1, 128),    # hd 128
+    (1, 320, 2, 128, 2, 256),    # hd 128, ds 256: 1 C buffer, 1 stage
+    (2, 128, 4, 64, 1, 256),     # hd 64, ds 256, 2 heads: the same
+    (1, 320, 3, 64, 1, 256),     # 3 heads a group: 1 head; 2 C buffers
+    # more items than SMs, so that a block runs several through its rings
+    (40, 256, 8, 64, 1, 128),    # 2 C buffers, 2 stages
+    (50, 192, 6, 64, 2, 192),    # 1 C buffer; strips of 64 rows idle a
+    (70, 128, 4, 64, 1, 256)])   # warpgroup; 1 C buffer, 1 stage
+def test_ssd_bf16_runs_the_wgmma_kernel(cuda, BC, Q, nh, hd, g, ds):
+    """bf16 SSD through TMA + wgmma, C·Bᵀ shared by the heads of a block,
+    against the plain version at chip_smoke.py's full-width limit, with
+    Mamba2's dt (log-uniform 1e-3..1e-1) and A (-U(1, 16)), so dacs falls
+    to about -400 in a chunk of 256; exactly one `wgmma_bf16` launch."""
+    assert ssd_scan.variant(torch.bfloat16, Q, hd, ds) == "wgmma_bf16"
+    gen = torch.Generator().manual_seed(BC * Q + nh * hd + g + ds)
+    x = _randn(gen, (BC, Q, nh, hd), torch.bfloat16, cuda, 0.5)
+    dt = torch.exp(torch.empty((BC, Q, nh)).uniform_(
+        np.log(1e-3), np.log(1e-1), generator=gen))
+    A = -torch.empty(nh).uniform_(1.0, 16.0, generator=gen)
+    dt, dacs = dt.to(cuda), torch.cumsum(dt * A, dim=1).to(cuda)
+    b = _randn(gen, (BC, Q, g, ds), torch.bfloat16, cuda, 0.3)
+    c = _randn(gen, (BC, Q, g, ds), torch.bfloat16, cuda, 0.3)
+    by = dict(ssd_intra_kernel.launches_by)
+    out = ssd_intra_kernel(x, dt, dacs, b, c)
+    torch.cuda.synchronize()
+    assert ssd_intra_kernel.launches_by == {
+        "wgmma_bf16": by["wgmma_bf16"] + 1, "simt": by["simt"]}
+    assert out.dtype == torch.bfloat16
+    _close_rows(out, ref_ssd_intra(x, dt, dacs, b, c))
 
 
 @pytest.mark.gpu
@@ -691,6 +782,17 @@ def test_bf16_paths_reject_what_their_tiles_do_not_cover(cuda):
     q = buf[1:].view(1, 8, 2, 64)            # 2 bytes past an aligned start
     with pytest.raises(ValueError, match="16-byte-aligned"):
         flash_attention_kernel(q, q, q, causal=True)
+
+
+@pytest.mark.gpu
+def test_ssd_bf16_path_rejects_misaligned_inputs(cuda):
+    BC, Q, nh, hd, g, ds = 1, 64, 2, 64, 1, 64
+    buf = torch.zeros(1 + BC * Q * nh * hd, device=cuda, dtype=torch.bfloat16)
+    x = buf[1:].view(BC, Q, nh, hd)          # 2 bytes past an aligned start
+    dt = torch.full((BC, Q, nh), 0.01, device=cuda)
+    b = torch.zeros((BC, Q, g, ds), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        ssd_intra_kernel(x, dt, dt, b, b)
 
 
 @pytest.mark.gpu
