@@ -26,12 +26,13 @@
    tolerances, ragged flash shapes included, and the TMA + wgmma paths
    at shapes of their own: bf16 GEMMs whose K_eff (64, 128, 3,072) runs
    the stage ring short of its depth and round it many times, int8 GEMMs
-   at K_eff 128, 512, 640, 3,072 and 6,144 (bitwise), and bf16 flash at
-   hd 64 and 128, GQA groups of 1, 3 and 4, causal and full, Sk = 200 and
-   Sq = 100, and bf16 SSD at Q 64-320, hd 64/128, ds 64-256, g 1, 2 and
-   nh and more work items than SMs, each seen to launch its wgmma
-   variant; and f32 GEMMs at unpadded shapes, straight into the SIMT
-   kernel's zero-filled edges.
+   at K_eff 128, 512, 640, 3,072 and 6,144 (bitwise), 60 bf16 flash
+   shapes at hd 64, 96, 112, 128 and 192, GQA groups of 1, 3 and 4,
+   causal and full, Sk = 200 and Sq = 100, and bf16 SSD at Q 64-320, hd
+   64/128, ds 64-256, g 1, 2 and nh and more work items than SMs, each
+   seen to launch its wgmma variant; f32 GEMMs at unpadded shapes,
+   straight into the SIMT kernel's zero-filled edges, and f32 flash at
+   hd 192 and 256 on the SIMT kernel.
 6. Drives the kernel API's paths at full model width, each with the
    launch counts set to 0 just before and read just after: the GEMM
    characterization table and `ops.matmul` on the two dominant GEMMs of
@@ -43,21 +44,23 @@
    factor (the fleet engine's, 1, for the aligned models; 1.024 for
    whisper's).
    `ops.ssd` at mamba2-780m and at zamba2-7b width (S = 4,096, 48 heads
-   of one group, 112 heads of two); `ops.flash` at llama3.2-3b width
-   (S = 4,096, causal, GQA) and at phi-3-vision-4.2b width (hd 96, the
-   SIMT kernel).  Each is held against its plain version (bf16 at full
-   width to 2^-6 of the value plus 2^-5 of the row's RMS, a limit shown
-   to reject a zeroed output, one with a diagonal tile dropped and, for
-   SSD, one with the decays of the next head of the kernel's head block)
-   and timed beside its bound and a library call.  The per-variant
-   launch counts must show every bf16 GEMM, the llama-width flash call
-   and both SSD calls on the bf16 wgmma kernels, phi-3-vision's flash
-   call on the SIMT one, every int8 GEMM on the s8 one and the fp32
-   GEMMs on the SIMT one; the redesigned kernels print their TFLOP/s,
-   share of bound, factor to the library call or the former kernel's
-   time, the int8 GEMMs their transpose's time alone, and the FFN GEMM's
-   int8 and fp32 paths the SM clock and power draw under load, kernel
-   and library call.
+   of one group, 112 heads of two); `ops.flash` (S = 4,096, causal) in
+   bf16 at llama3.2-3b (hd 128, GQA), phi-3-vision-4.2b (hd 96),
+   zamba2-7b (hd 112) and nemotron-4-340b (hd 192, GQA) width, and in f32
+   at phi-3-vision-4.2b width (the SIMT kernel).  Each is held against
+   its plain version (at full width to 2^-6 of the value plus 2^-5 of
+   the row's RMS, a limit shown to reject a zeroed output, one with a
+   diagonal tile dropped, for flash past hd 64 one that drops the second
+   64-column box and, for SSD, one with the decays of the next head of
+   the kernel's head block) and timed beside its bound and a library
+   call.  The per-variant launch counts must show every bf16 GEMM, the
+   four bf16 flash calls and both SSD calls on the bf16 wgmma kernels,
+   the f32 flash call on the SIMT one, every int8 GEMM on the s8 one and
+   the fp32 GEMMs on the SIMT one; the redesigned kernels print their
+   TFLOP/s, share of bound, factor to the library call or the former
+   kernel's time, the int8 GEMMs their transpose's time alone, and the
+   FFN GEMM's int8 and fp32 paths the SM clock and power draw under
+   load, kernel and library call.
 
 Prints the phase times and peak device memory, then one JSON line with
 every kernel's record and, last, `{"ok": true, "device": {...}}`.  Exits
@@ -104,7 +107,8 @@ RECORD_GEMM = ("llama3.2-3b", (4096, 8192, 3072), "bf16")
 #: times of the kernels the TMA + wgmma paths replaced, printed beside the
 #: new ones (NVIDIA H100 80GB HBM3, 700.00 W, this script's run of the
 #: former kernels; PERF.md): the bf16 GEMMs on the wmma kernel by (model,
-#: shape), and flash at llama3.2-3b width on the SIMT kernel
+#: shape), and bf16 flash on the SIMT kernel by model (llama3.2-3b's in
+#: PR 12, phi-3-vision-4.2b's in PR 15's run 12)
 WMMA_GEMM_BF16_MS = {
     ("granite-3-2b", (4096, 2048, 2048)): 0.6461,
     ("granite-3-2b", (4096, 8192, 2048)): 2.4846,
@@ -112,7 +116,7 @@ WMMA_GEMM_BF16_MS = {
     ("llama3.2-3b", (4096, 8192, 3072)): 3.7678,
     ("whisper-small", (1500, 768, 768)): 0.0983,
     ("whisper-small", (1500, 3072, 768)): 0.2044}
-SIMT_FLASH_MS = 15.5825
+SIMT_FLASH_MS = {"llama3.2-3b": 15.5825, "phi-3-vision-4.2b": 19.8532}
 #: the former SIMT SSD kernel at mamba2-780m width (the same card, PR 14's
 #: run 6; PERF.md), printed beside the tensor-core kernel's time
 SIMT_SSD_MS = {"mamba2-780m": 2.2543}
@@ -128,12 +132,17 @@ OLD_SIMT_GEMM_MS = {
     ("granite-3-2b", (4096, 8192, 2048), "int8"): 6.4759,
     ("llama3.2-3b", (4096, 3072, 3072), "int8"): 3.6918,
     ("llama3.2-3b", (4096, 8192, 3072), "int8"): 9.7680}
-#: bf16 flash shapes of the tensor-core kernel: hd 64 and 128, G = H / KV
-#: of 1, 3 and 4, causal and full, ragged Sk (200) and Sq (100)
+#: bf16 flash shapes of the tensor-core kernel: every hd it takes (96 and
+#: 112 zero-filled past hd in their second box, 192 in three boxes with
+#: 64-key tiles), G = H / KV of 1, 3 and 4, causal and full, ragged Sk
+#: (200) and Sq (100)
 TC_FLASH_SHAPES = [(2, Sq, Sk, 2 * G, 2, hd, causal)
-                   for hd in (64, 128) for G in (1, 3, 4)
+                   for hd in (64, 96, 112, 128, 192) for G in (1, 3, 4)
                    for causal in (True, False)
                    for Sq, Sk in ((128, 200), (100, 100))]
+#: f32 flash shapes of the SIMT kernel's 8-dims-a-lane class (hd > 128)
+SIMT_WIDE_FLASH_SHAPES = [(1, 200, 230, 8, 2, 192, True),
+                          (1, 130, 200, 4, 2, 256, False)]
 #: bf16 SSD shapes of the tensor-core kernel, (BC, Q, nh, hd, g, ds): Q of
 #: a half, one and a half and two and a half strips, hd 64 and 128, ds 64
 #: to 256 (256: one stage), g 1, 2 and nh, 2 heads an item and 1 (3 heads
@@ -702,10 +711,22 @@ def kernel_api_small(torch, dev) -> None:
         errs[key] = max(errs.get(key, 0.0), close(
             torch, f"flash {(B, Sq, Sk, H, KV, hd, causal)} bf16", out,
             ref_attention(q, k, v, causal=causal), 5e-2, 5e-2))
+    for B, Sq, Sk, H, KV, hd, causal in SIMT_WIDE_FLASH_SHAPES:
+        q, k, v = (arr(s) for s in ((B, Sq, H, hd), (B, Sk, KV, hd),
+                                    (B, Sk, KV, hd)))
+        n0 = fa.flash_attention_kernel.launches_by["simt"]
+        out = ops.flash(q, k, v, causal=causal)
+        check(fa.flash_attention_kernel.launches_by["simt"] == n0 + 1,
+              f"f32 flash {(B, Sq, Sk, H, KV, hd, causal)} did not run the "
+              "SIMT kernel")
+        errs[f"f32 SIMT hd {hd}"] = close(
+            torch, f"flash {(B, Sq, Sk, H, KV, hd, causal)} f32", out,
+            ref_attention(q, k, v, causal=causal), 1e-3, 1e-3)
     print(f"flash small shapes (4 shapes + Sk=200 + Sq=100, each "
-          f"f32 and bf16, and {n_tc} bf16 shapes of the wgmma kernel: hd 64 "
-          "and 128, G 1/3/4, causal and full, Sk=200 and Sq=100; every call "
-          "launched its kernel): max |diff| "
+          f"f32 and bf16; {n_tc} bf16 shapes of the wgmma kernel: hd 64, 96, "
+          "112, 128 and 192, G 1/3/4, causal and full, Sk=200 and Sq=100; "
+          f"{len(SIMT_WIDE_FLASH_SHAPES)} f32 SIMT shapes at hd 192 and 256; "
+          "every call launched its kernel): max |diff| "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
     err = 0.0
@@ -1103,22 +1124,30 @@ def ssd_launcher(torch, ssd_scan, inputs):
     return launch
 
 
+#: the flash path's calls, (model, working type): the head of B3's record
+#: first, then its "paths" (keyed by model, " f32" for the f32 call)
+FLASH_CALLS = (("llama3.2-3b", "bfloat16"), ("phi-3-vision-4.2b", "bfloat16"),
+               ("zamba2-7b", "bfloat16"), ("nemotron-4-340b", "bfloat16"),
+               ("phi-3-vision-4.2b", "float32"))
+
+
 def flash_path(torch, dev):
-    """The flash path at llama3.2-3b width: `ops.flash` on B = 1,
-    S = 4,096, 24 query heads over 8 kv heads of 128, causal, bf16; and at
-    phi-3-vision-4.2b width (32 heads of 96, causal, bf16), whose head dim
-    the tensor-core kernel's 64-column boxes do not divide, so it runs
-    the SIMT kernel.  The closure holds each against the plain version
-    with `close_rows` and times kernel, plain version and
-    `scaled_dot_product_attention`."""
+    """The flash path at published widths: `ops.flash` on B = 1,
+    S = 4,096, causal, in bf16 at llama3.2-3b (24 query heads over 8 kv
+    heads of 128), phi-3-vision-4.2b (32 heads of 96), zamba2-7b's
+    shared attention (32 heads of 112) and nemotron-4-340b (96 over 8
+    heads of 192), all on the tensor-core kernel, and in f32 at
+    phi-3-vision-4.2b width on the SIMT kernel.  The closure holds each
+    against the plain version with `close_rows` and times kernel, plain
+    version and `scaled_dot_product_attention`."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     calls = []
-    for seed, model in ((2, "llama3.2-3b"), (3, "phi-3-vision-4.2b")):
+    for seed, (model, dtype_name) in enumerate(FLASH_CALLS, start=2):
         cfg = get_config(model)
         B, S, H, KV, hd = (1, 4096, cfg.num_heads, cfg.num_kv_heads,
                            cfg.head_dim)
-        dtype = getattr(torch, cfg.dtype)
+        dtype = getattr(torch, dtype_name)
         gen = torch.Generator(device=dev).manual_seed(seed)
         q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
                    for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
@@ -1131,20 +1160,21 @@ def flash_path(torch, dev):
         calls.append((cfg, q, k, v, out))
 
     def run() -> dict:
-        (cfg, *llama), (cfg_phi, *phi) = calls
-        record = flash_record(torch, cfg, *llama, SIMT_FLASH_MS)
-        # the SIMT kernel at its model's width: the yardstick of its redesign
-        rec_phi = flash_record(torch, cfg_phi, *phi, None)
-        return {**record, "paths": {"phi-3-vision-4.2b": rec_phi}}
-    # the llama call takes the tensor-core kernel, phi-3-vision's the SIMT
-    run.launches_by = {"wgmma_bf16": 1, "simt": 1}
+        head, *rest = (flash_record(torch, *call) for call in calls)
+        return {**head, "paths": {
+            cfg.name + ("" if q.dtype == torch.bfloat16 else " f32"): rec
+            for (cfg, q, *_), rec in zip(calls[1:], rest)}}
+    # every bf16 call takes the tensor-core kernel, the f32 one the SIMT
+    run.launches_by = {"wgmma_bf16": 4, "simt": 1}
     return run
 
 
-def flash_record(torch, cfg, q, k, v, out, former_ms) -> dict:
+def flash_record(torch, cfg, q, k, v, out) -> dict:
     """One full-width causal flash call against its plain version with
     `close_rows` (mutants: zeroed, the last rows' diagonal 32-key tile
-    dropped), timed beside the plain version, SDPA and its bound."""
+    dropped and, past hd 64, q and k zeroed past column 64: a kernel that
+    drops the second box), and f32 also within the JAX tests' 1e-3;
+    timed beside the plain version, SDPA and its bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1156,29 +1186,46 @@ def flash_record(torch, cfg, q, k, v, out, former_ms) -> dict:
     dropped = want.clone()
     dropped[:, -32:] = ref_attention(q[:, -32:], k[:, :-32], v[:, :-32],
                                      causal=False)
-    err = close_rows(torch, f"flash at {cfg.name} width", out, want,
-                     {"zeroed": torch.zeros_like(want),
-                      "diagonal-tile-dropped": dropped})
-    del want, dropped
+    mutants = {"zeroed": torch.zeros_like(want),
+               "diagonal-tile-dropped": dropped}
+    if hd > 64:
+        q64, k64 = q.clone(), k.clone()
+        q64[..., 64:] = 0
+        k64[..., 64:] = 0
+        mutants["second-box-dropped"] = ref_attention(q64, k64, v,
+                                                      causal=True)
+        del q64, k64
+    err = close_rows(torch, f"flash at {cfg.name} width, {q.dtype}", out,
+                     want, mutants)
+    if q.dtype == torch.float32:
+        close(torch, f"flash at {cfg.name} width, f32", out, want, 1e-3,
+              1e-3)
+    del want, dropped, mutants
+    torch.cuda.empty_cache()             # nemotron's scores: 6.4 GB a copy
     ms = event_ms(torch, lambda: fa._launch(q, k, v, True, hd ** -0.5), REPS)
     plain_ms = event_ms(torch, lambda: ref_attention(q, k, v, causal=True),
                         REPS)
+    torch.cuda.empty_cache()
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), REPS)
+    del qt, kt, vt
     n_ops = 4 * B * H * hd * (S * (S + 1) // 2)
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     b = bound(n_bytes, n_ops, "bf16" if q.dtype == torch.bfloat16
               else "fp32")
     path = fa.variant(q.dtype, hd)
-    print(f"flash {cfg.name} [{path}]: max |diff| "
+    former = SIMT_FLASH_MS.get(cfg.name) if q.dtype == torch.bfloat16 \
+        else None
+    print(f"flash {cfg.name} {q.dtype} [{path}]: max |diff| "
           f"{err:.3e}; kernel {ms:.4f} ms ({n_ops / ms / 1e9:.1f} "
           f"TFLOP/s, {b['bound_ms'] / ms:.1%} of bound, "
           f"{ms / lib_ms:.2f}x SDPA"
-          + (f"; former SIMT kernel {former_ms:.4f} ms" if former_ms else "")
+          + (f"; former SIMT kernel {former:.4f} ms, {former / ms:.1f}x "
+             "slower" if former else "")
           + f"), plain {plain_ms:.4f} ms, library (SDPA) {lib_ms:.4f} ms, "
           f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
-          f"{n_ops / 1e9:.1f} GFLOP)")
+          f"{n_ops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB)")
     return {"source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:20",
             "variant": path, "max_abs_err": err, "ms": ms,

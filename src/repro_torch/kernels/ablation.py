@@ -5,10 +5,12 @@
 Each variant of a CUDA source removes or replaces one part of its
 kernel; all are built from this checkout into `build/ablation/` and
 timed at the main path's shapes (device time of the kernel from
-`torch.profiler`, 10 launches after one).  Every variant but the kernel
-itself computes a wrong result: only its time means anything, and the
-kernel's own result is checked.  A variant whose text no longer matches
-the source fails with its name.
+`torch.profiler`, 10 launches after one).  A variant that removes a
+part computes a wrong result: only its time means anything, and the
+kernel's own result is checked; a variant that changes how the same
+function is computed (the flash stage count and k-steps) is checked
+too.  A variant whose text no longer matches the source fails with its
+name.
 
 * `csrc/ssd_scan.cu`'s tensor-core kernel at mamba2-780m and zamba2-7b
   width (16 chunks of 256), with 2 heads an item and with 1: no stores
@@ -18,6 +20,12 @@ the source fails with its name.
   them in one call, 128 uniform bins, OFU spread over them: lanes that
   hit one cell combined by `__match_any_sync` before the shared atomic;
   no shared atomics; no binning either (loads and sums only).
+* `csrc/flash_attention.cu`'s tensor-core kernel at phi-3-vision-4.2b,
+  zamba2-7b and nemotron-4-340b width (S 4,096, causal, bf16): the
+  hd-192 ring with 2 stages instead of 3; S = Q·Kᵀ over every k-step of
+  the padded tile, the zero columns past hd 96 or 112 included; O += P·V
+  at n64 for hd 96 and 112, dropping the padded box's 64 columns (twice
+  what an n96 or n112 product would save).
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, fleet_hist, ops
-from repro_torch.kernels.ref import ref_ssd_intra
+from repro_torch.kernels.ref import ref_attention, ref_ssd_intra
 
 OUT = _build.BUILD_DIR.parent / "ablation"
 
@@ -66,6 +74,22 @@ HIST_VARIANTS = {
         """          const int k = find_bin(v[a][u], s_edges, bins, e0, inv_w);
           atomicAdd(&s_hist[key0[u] + k], 1);""", "")],
 }
+
+
+FLASH_VARIANTS = {
+    "hd 192: 2 stages": [("constexpr int kStages192 = 3;",
+                          "constexpr int kStages192 = 2;")],
+    "every padded k-step": [(
+        "for (int kk = 0; kk < (HD + 15) / 16; ++kk) {",
+        "for (int kk = 0; kk < P::kPad / 16; ++kk) {")],
+    "P.V at n64 past hd 64": [(
+        "else if constexpr (P::kPad == 128) wgmma_rs_n128(o, pa[kk], dv);",
+        """else if constexpr (HD == 128) wgmma_rs_n128(o, pa[kk], dv);
+        else if constexpr (P::kPad == 128)
+          wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(o), pa[kk], dv);""")],
+}
+#: flash variants that compute a wrong result on purpose (timed only)
+FLASH_WRONG = ("P.V at n64 past hd 64",)
 
 
 def _variants(name: str, subs: dict) -> dict:
@@ -197,6 +221,39 @@ def hist(libs: dict) -> None:
         print(f"fleet_hist {name} ({D} x {S}), device ms: " + "; ".join(row))
 
 
+def flash(libs: dict) -> None:
+    dev = torch.device("cuda", 0)
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    for model, (H, KV, hd) in (("phi-3-vision-4.2b", (32, 32, 96)),
+                               ("zamba2-7b", (32, 32, 112)),
+                               ("nemotron-4-340b", (96, 8, 192))):
+        B, S = 1, 4096
+        gen = torch.Generator(device=dev).manual_seed(2)
+        q, k, v = (torch.randn(s, generator=gen, device=dev).bfloat16()
+                   for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+        want = ref_attention(q, k, v, causal=True).float()
+        row = []
+        for what, lib in libs.items():
+            fn = lib.flash_attention_bf16_wgmma
+            fn.argtypes = [p] * 4 + [i32] * 6 + [ctypes.c_float, i32, i32, p]
+            fn.restype = i32
+            out = torch.zeros_like(q)
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    B, S, S, H, KV, hd, hd ** -0.5, 1, dev.index,
+                    torch.cuda.current_stream().cuda_stream)
+            if fn(*args):
+                raise RuntimeError(f"flash {what}: launch failed")
+            if what not in FLASH_WRONG or hd not in (96, 112):
+                torch.testing.assert_close(out.float(), want, rtol=5e-2,
+                                           atol=5e-2)
+            row.append(f"{what} "
+                       f"{device_ms(lambda: fn(*args), 'flash_bf16'):.4f}")
+        del want
+        torch.cuda.empty_cache()
+        print(f"flash {model} ({B}, {S}, H {H}, KV {KV}, hd {hd}), causal, "
+              "device ms: " + "; ".join(row))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("ablation: needs a CUDA device")
@@ -207,10 +264,13 @@ def main() -> None:
     print(smi.stdout.strip())
     ssd_src = _variants("ssd_scan", SSD_VARIANTS)
     hist_src = _variants("fleet_hist", HIST_VARIANTS)
+    flash_src = _variants("flash_attention", FLASH_VARIANTS)
     libs = _build_all({**{("ssd", k): v for k, v in ssd_src.items()},
-                       **{("hist", k): v for k, v in hist_src.items()}})
+                       **{("hist", k): v for k, v in hist_src.items()},
+                       **{("flash", k): v for k, v in flash_src.items()}})
     ssd({k: v for (kind, k), v in libs.items() if kind == "ssd"})
     hist({k: v for (kind, k), v in libs.items() if kind == "hist"})
+    flash({k: v for (kind, k), v in libs.items() if kind == "flash"})
 
 
 if __name__ == "__main__":

@@ -17,23 +17,27 @@
 //
 // Two kernels, chosen by the wrapper by dtype and head dim:
 //
-//   * bf16 with hd 64 or 128 (flash_bf16_wgmma): one block of three
-//     warpgroups a (128 query rows, head, batch).  One producer thread
-//     loads Q once and two stages of 128-key K and V tiles by TMA into an
-//     mbarrier ring, so loads cost the consumers no instruction and the
-//     next tile arrives while this one is used; S = Q·Kᵀ and O += P·V
-//     are warpgroup wgmma products on the tensor cores (P from registers,
-//     V read in place through the transpose bit), with the online
-//     softmax on the accumulator registers between them.  Keys past Sk
-//     and above the diagonal are masked to -1e30 in registers; tiles
-//     wholly above it are never loaded.
-//   * everything else (f32; bf16 with another hd <= 128, such as
-//     phi-3-vision's 96 and zamba2's 112, which wgmma's 64-column boxes
-//     do not divide) (flash_kernel): one warp owns one (query i, head h)
-//     row with its m, l and acc (hd / 32 dims a lane) in registers; the
-//     warps of a block share one kv head, stage tiles of 32 keys and
-//     values in shared memory, and score one key per lane with a warp
-//     reduction, in f32 on the SM's cores.
+//   * bf16 with hd 64, 96, 112, 128 or 192 (flash_bf16_wgmma): one
+//     block of three warpgroups a (128 query rows, head, batch).  One
+//     producer thread loads Q once and a ring of K and V tiles by TMA
+//     into mbarrier stages, so loads cost the consumers no instruction
+//     and the next tile arrives while this one is used; S = Q·Kᵀ and
+//     O += P·V are warpgroup wgmma products on the tensor cores (P from
+//     registers, V read in place through the transpose bit), with the
+//     online softmax on the accumulator registers between them.  Keys
+//     past Sk and above the diagonal are masked to -1e30 in registers;
+//     tiles wholly above it are never loaded.  Tiles are 64-column
+//     boxes: hd 96 and 112 (phi-3-vision's and zamba2's heads) take two,
+//     the second read past hd, where TMA fills zeros, so S runs only
+//     hd / 16 k-steps and P·V writes zero columns that are never
+//     stored; hd 192 (nemotron-4-340b's) takes three, with tiles of 64
+//     keys so that the ring fits the block's shared memory.
+//   * everything else (f32; bf16 with another hd <= 256) (flash_kernel):
+//     one warp owns one (query i, head h) row with its m, l and acc
+//     (hd / 32 dims a lane, 4 or 8 a lane by the kernel's head-dim class)
+//     in registers; the warps of a block share one kv head, stage tiles
+//     of 32 keys and values in shared memory sized by hd, and score one
+//     key per lane with a warp reduction, in f32 on the SM's cores.
 //
 // Both mask keys past Sk (the ragged tail that the JAX wrapper sends to
 // its reference instead) like any other masked score, so any Sk runs
@@ -43,7 +47,10 @@
 //
 // Bound: operations.  At llama3.2-3b width (S = 4,096, H = 24, KV = 8,
 // hd = 128, causal, bf16) the kernel must do 103 GFLOP, 0.104 ms at 989
-// TFLOP/s, against 67 MB of q, k, v and out (0.020 ms at 3.35 TB/s).
+// TFLOP/s, against 67 MB of q, k, v and out (0.020 ms at 3.35 TB/s); at
+// nemotron-4-340b's (H = 96, KV = 8, hd = 192) 619 GFLOP, 0.626 ms,
+// against 327 MB.  The padded columns of hd 96 and 112 cost P·V a third
+// and a seventh more tensor work than the bound counts.
 
 #include <cstdint>
 
@@ -54,8 +61,7 @@ namespace {
 
 constexpr int kWarps = 16;             // (query, head) rows of a block
 constexpr int kKeys = 32;              // keys of a tile: one a lane
-constexpr int kMaxHd = 128;
-constexpr int kDims = kMaxHd / 32;     // dims a lane holds
+constexpr int kMaxHd = 256;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kAll = 0xffffffffu;
 
@@ -71,14 +77,17 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// grid: x over blocks of kWarps rows (row = i * G + g), y over B * KV
-template <typename T>
+// grid: x over blocks of kWarps rows (row = i * G + g), y over B * KV;
+// kDims dims a lane (hd <= 32 * kDims); dynamic shared memory holds a
+// tile of kKeys keys and one of values, kKeys * hd floats each
+template <typename T, int kDims>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
              int H, int KV, int hd, float scale, int causal) {
-  __shared__ float Ks[kKeys * kMaxHd];
-  __shared__ float Vs[kKeys * kMaxHd];
+  extern __shared__ float kv_tiles[];
+  float* Ks = kv_tiles;
+  float* Vs = kv_tiles + kKeys * hd;
   const int G = H / KV;
   const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -158,42 +167,77 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, int kDims>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int KV, int hd, float scale, int causal,
            cudaStream_t stream) {
   const long long n_rows = static_cast<long long>(Sq) * (H / KV);
   const dim3 grid(static_cast<unsigned>((n_rows + kWarps - 1) / kWarps),
                   B * KV);
-  flash_kernel<T><<<grid, kWarps * 32, 0, stream>>>(
+  const int smem = 2 * kKeys * hd * static_cast<int>(sizeof(float));
+  if (smem > 48 * 1024) {              // hd > 192: a block must opt in
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_kernel<T, kDims>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  flash_kernel<T, kDims><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, KV, hd,
       scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- bf16, hd 64 or 128: TMA + wgmma ---------------------------------
+// The SIMT kernel of q's head-dim class: 4 dims a lane up to hd 128, so
+// the common head dims keep their registers, else 8.
+template <typename T>
+int launch_simt(const void* q, const void* k, const void* v, void* out,
+                int B, int Sq, int Sk, int H, int KV, int hd, float scale,
+                int causal, cudaStream_t stream) {
+  return hd <= 128
+             ? launch<T, 4>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale,
+                            causal, stream)
+             : launch<T, 8>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale,
+                            causal, stream);
+}
+
+// ---- bf16, hd 64, 96, 112, 128 or 192: TMA + wgmma ---------------------
 constexpr int kRows = 128;              // query rows of a block
-constexpr int kKv = 128;                // keys of a tile
 constexpr int kTcThreads = 384;         // 2 consumer warpgroups + producer
 constexpr float kLog2e = 1.4426950408889634f;
+// stages of the hd-192 ring: 3 take 192 KB of shared memory, 2 144 KB
+constexpr int kStages192 = 3;
 
+// The tile plan of a head dim: hd rounded up to whole 64-column boxes
+// (TMA fills the columns past hd with zeros), keys a tile and stages of
+// the (K, V) ring.  hd 192 takes 64-key tiles: Q and two stages of
+// 128-key tiles would need 240 KB, over the 227 KB a block may have.
 template <int HD>
-constexpr int tc_smem_bytes() {         // Q, 2 K stages, 2 V stages
-  return 5 * kRows * HD * 2 + 7 * 8 + 1024;
-}
+struct TcPlan {
+  static constexpr int kBoxes = (HD + 63) / 64;
+  static constexpr int kPad = 64 * kBoxes;          // columns of a tile
+  static constexpr int kKv = HD > 128 ? 64 : 128;   // keys of a tile
+  static constexpr int kStages = HD > 128 ? kStages192 : 2;
+  static constexpr int kQBox = kRows * 128;         // bytes of a Q box
+  static constexpr int kKvBox = kKv * 128;          // of a K or V box
+  static constexpr int kQTile = kBoxes * kQBox;
+  static constexpr int kKvTile = kBoxes * kKvBox;
+  static constexpr int kSmem =                      // Q, the ring, barriers
+      kQTile + 2 * kStages * kKvTile + (1 + 3 * kStages) * 8 + 1024;
+};
 
 // One block owns 128 query rows of one head h of one batch b; warpgroups
 // 0 and 1 own 64 rows each, warpgroup 2 is the producer: one thread
-// loads Q once and keeps two stages of (K, V) tiles of 128 keys of kv
-// head h / G in flight, all by TMA through 4-D tensor maps (hd, heads,
-// S, B), so a box past Sq or Sk is zero-filled rather than read from the
-// next batch.  Per tile a consumer computes S = Q·Kᵀ (m64n128k16, both
-// K-major), masks and scales it in registers (log2 domain), updates its
-// rows' max and sum through the 4 threads that share a row, rounds
-// p = exp(s - m') to bf16 into the A operand of O += P·V (m64nHDk16, A
-// from registers, V MN-major through the transpose bit), and releases
-// the stage.  Causal query tiles run in reverse order, longest first.
+// loads Q once and keeps the stages of (K, V) tiles of kv head h / G in
+// flight, all by TMA through 4-D tensor maps (hd, heads, S, B), so a box
+// past Sq, Sk or hd is zero-filled rather than read from the next row,
+// head or batch.  Per tile a consumer computes S = Q·Kᵀ (m64nKVk16, both
+// K-major, over the hd / 16 k-steps that hold data), masks and scales it
+// in registers (log2 domain), updates its rows' max and sum through the
+// 4 threads that share a row, rounds p = exp(s - m') to bf16 into the A
+// operand of O += P·V (m64nPADk16, A from registers, V MN-major through
+// the transpose bit), and releases the stage.  Causal query tiles run in
+// reverse order, longest first.
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
@@ -201,17 +245,17 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tv,
                  __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
                  int KV, float scale_log2, int causal) {
-  constexpr int kTile = kRows * HD * 2;  // bytes of a Q, K or V tile
-  constexpr int kBox = kRows * 128;      // bytes of one 64-column box
+  using P = TcPlan<HD>;
+  constexpr int kKv = P::kKv, kSt = P::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = align_1024(smem_raw);
-  uint8_t* sk = sq + kTile;              // 2 stages
-  uint8_t* sv = sk + 2 * kTile;          // 2 stages
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sv + 2 * kTile);
+  uint8_t* sk = sq + P::kQTile;          // kSt stages
+  uint8_t* sv = sk + kSt * P::kKvTile;   // kSt stages
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sv + kSt * P::kKvTile);
   uint64_t* q_full = bars;
-  uint64_t* k_full = bars + 1;           // [2]
-  uint64_t* v_full = bars + 3;           // [2]
-  uint64_t* empty = bars + 5;            // [2]
+  uint64_t* k_full = bars + 1;           // [kSt]
+  uint64_t* v_full = bars + 1 + kSt;     // [kSt]
+  uint64_t* empty = bars + 1 + 2 * kSt;  // [kSt]
 
   const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
@@ -220,7 +264,7 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
   const int n_kt = (kv_end + kKv - 1) / kKv;
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < kSt; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
       mbar_init(&empty[s], 2);           // one arrive a consumer
@@ -233,49 +277,55 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
   if (wg == 2) {                         // producer
     regs_dealloc<40>();
     if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, kTile);
+      mbar_expect_tx(q_full, P::kQTile);
 #pragma unroll
-      for (int c = 0; c < HD / 64; ++c)
-        tma_load_4d(sq + c * kBox, &tq, q_full, 64 * c, h, q0, b);
+      for (int c = 0; c < P::kBoxes; ++c)
+        tma_load_4d(sq + c * P::kQBox, &tq, q_full, 64 * c, h, q0, b);
       for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt & 1;
-        if (kt >= 2) mbar_wait(&empty[s], ((kt >> 1) + 1) & 1);
-        mbar_expect_tx(&k_full[s], kTile);
+        const int s = kt % kSt;
+        if (kt >= kSt) mbar_wait(&empty[s], ((kt / kSt) + 1) & 1);
+        mbar_expect_tx(&k_full[s], P::kKvTile);
 #pragma unroll
-        for (int c = 0; c < HD / 64; ++c)
-          tma_load_4d(sk + s * kTile + c * kBox, &tk, &k_full[s], 64 * c,
-                      kvh, kt * kKv, b);
-        mbar_expect_tx(&v_full[s], kTile);
+        for (int c = 0; c < P::kBoxes; ++c)
+          tma_load_4d(sk + s * P::kKvTile + c * P::kKvBox, &tk, &k_full[s],
+                      64 * c, kvh, kt * kKv, b);
+        mbar_expect_tx(&v_full[s], P::kKvTile);
 #pragma unroll
-        for (int c = 0; c < HD / 64; ++c)
-          tma_load_4d(sv + s * kTile + c * kBox, &tv, &v_full[s], 64 * c,
-                      kvh, kt * kKv, b);
+        for (int c = 0; c < P::kBoxes; ++c)
+          tma_load_4d(sv + s * P::kKvTile + c * P::kKvBox, &tv, &v_full[s],
+                      64 * c, kvh, kt * kKv, b);
       }
     }
   } else {                               // consumers
     regs_alloc<232>();
     const int t = threadIdx.x % 128;
     const int row = q0 + wg * 64 + 16 * (t / 32) + (t % 32) / 4;  // and +8
-    float o[HD / 2];
+    float o[P::kPad / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < P::kPad / 2; ++i) o[i] = 0.f;
     float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
     const uint8_t* qa = sq + wg * 64 * 128;
     mbar_wait(q_full, 0);
 
     for (int kt = 0; kt < n_kt; ++kt) {
-      const int s = kt & 1;
-      const uint32_t ph = (kt >> 1) & 1;
+      const int s = kt % kSt;
+      const uint32_t ph = (kt / kSt) & 1;
       const int k0 = kt * kKv;
+      const uint8_t* ks = sk + s * P::kKvTile;
       float sc[kKv / 2];
       mbar_wait(&k_full[s], ph);
       fence_regs(sc);
       wgmma_fence();
+      // the k-steps past hd would multiply zeros: skipped
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const int off = (kk / 4) * kBox + 32 * (kk % 4);
-        wgmma_ss_n128<0>(sc, smem_desc(qa + off, 16, 1024),
-                         smem_desc(sk + s * kTile + off, 16, 1024), kk > 0);
+      for (int kk = 0; kk < (HD + 15) / 16; ++kk) {
+        const int col = 32 * (kk % 4);   // bytes into the box's rows
+        const uint64_t da =
+            smem_desc(qa + (kk / 4) * P::kQBox + col, 16, 1024);
+        const uint64_t db =
+            smem_desc(ks + (kk / 4) * P::kKvBox + col, 16, 1024);
+        if constexpr (kKv == 128) wgmma_ss_n128<0>(sc, da, db, kk > 0);
+        else wgmma_ss_n64<0>(sc, da, db, kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -312,6 +362,7 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
         l_run[e] += p0 + p1;
         pa[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
       }
+      // the columns past hd hold zeros: nothing to rescale
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i / 2) % 2];
 
@@ -320,9 +371,11 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKv / 16; ++kk) {
-        const uint64_t dv = smem_desc(sv + s * kTile + 2048 * kk, kBox, 1024);
-        if constexpr (HD == 128) wgmma_rs_n128(o, pa[kk], dv);
-        else wgmma_rs_n64(o, pa[kk], dv);
+        const uint64_t dv =
+            smem_desc(sv + s * P::kKvTile + 2048 * kk, P::kKvBox, 1024);
+        if constexpr (P::kPad == 64) wgmma_rs_n64(o, pa[kk], dv);
+        else if constexpr (P::kPad == 128) wgmma_rs_n128(o, pa[kk], dv);
+        else wgmma_rs_n192(o, pa[kk], dv);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -337,6 +390,8 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
       l_run[e] += __shfl_xor_sync(kAll, l_run[e], 2);
       l_run[e] = 1.f / fmaxf(l_run[e], 1e-30f);
     }
+    // o[i] for i < HD / 2 holds exactly the columns d < hd; d and hd are
+    // even, so each 4-byte pair lies whole inside the row
 #pragma unroll
     for (int i = 0; i < HD / 2; i += 2) {
       const int e = (i / 2) % 2, r = row + 8 * e;
@@ -354,9 +409,12 @@ template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
               int Sq, int Sk, int H, int KV, float scale, int causal,
               cudaStream_t stream) {
-  // (B, S, heads, hd) contiguous: dims innermost first, byte strides
+  using P = TcPlan<HD>;
+  // (B, S, heads, hd) contiguous: dims innermost first, byte strides;
+  // the true hd as dim 0, so that boxes past it read zeros
   CUtensorMap tq, tk, tv;
-  const cuuint32_t box[4] = {64, 1, kRows, 1};
+  const cuuint32_t qbox[4] = {64, 1, kRows, 1};
+  const cuuint32_t kvbox[4] = {64, 1, P::kKv, 1};
   const cuuint64_t dq[4] = {HD, static_cast<cuuint64_t>(H),
                             static_cast<cuuint64_t>(Sq),
                             static_cast<cuuint64_t>(B)};
@@ -368,17 +426,16 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   const cuuint64_t skv[3] = {HD * 2, static_cast<cuuint64_t>(KV) * HD * 2,
                              static_cast<cuuint64_t>(Sk) * KV * HD * 2};
   constexpr CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  int err = encode_tensor_map(&tq, bf16, q, 4, dq, sq, box);
-  if (!err) err = encode_tensor_map(&tk, bf16, k, 4, dkv, skv, box);
-  if (!err) err = encode_tensor_map(&tv, bf16, v, 4, dkv, skv, box);
+  int err = encode_tensor_map(&tq, bf16, q, 4, dq, sq, qbox);
+  if (!err) err = encode_tensor_map(&tk, bf16, k, 4, dkv, skv, kvbox);
+  if (!err) err = encode_tensor_map(&tv, bf16, v, 4, dkv, skv, kvbox);
   if (err) return err;
-  constexpr int smem = tc_smem_bytes<HD>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_bf16_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      P::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + kRows - 1) / kRows, H, B);
-  flash_bf16_wgmma<HD><<<grid, kTcThreads, smem, stream>>>(
+  flash_bf16_wgmma<HD><<<grid, kTcThreads, P::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV,
       scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
@@ -388,33 +445,33 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
 
 // out = attention of q (B, Sq, H, hd), k/v (B, Sk, KV, hd), all
 // contiguous of working type `dtype` (DType: f32 or bf16) on CUDA device
-// `device`; H % KV == 0, hd <= 128, Sk >= 1.  Launches on `stream` and
-// returns the launch's cudaError_t (0 on success).
+// `device`; H % KV == 0, 1 <= hd <= 256, Sk >= 1.  Launches on `stream`
+// and returns the launch's cudaError_t (0 on success).
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, void* out, int B, int Sq,
                                int Sk, int H, int KV, int hd, float scale,
                                int causal, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (hd > kMaxHd || KV <= 0 || H % KV || Sk < 1)
+  if (hd < 1 || hd > kMaxHd || KV <= 0 || H % KV || Sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch<float>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale,
-                           causal, s);
+      return launch_simt<float>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale,
+                                causal, s);
     case kBF16:
-      return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KV, hd,
-                                   scale, causal, s);
+      return launch_simt<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KV, hd,
+                                        scale, causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The same attention for bf16 q, k, v with hd 64 or 128, through the
-// TMA + wgmma kernel; B, H <= 65535, every pointer 16-byte aligned.
-// Returns the launch's cudaError_t, or hopper.cuh's codes when a tensor
-// map cannot be encoded.
+// The same attention for bf16 q, k, v with hd 64, 96, 112, 128 or 192,
+// through the TMA + wgmma kernel; B, H <= 65535, every pointer 16-byte
+// aligned.  Returns the launch's cudaError_t, or hopper.cuh's codes when
+// a tensor map cannot be encoded.
 extern "C" int flash_attention_bf16_wgmma(const void* q, const void* k,
                                           const void* v, void* out, int B,
                                           int Sq, int Sk, int H, int KV,
@@ -428,8 +485,16 @@ extern "C" int flash_attention_bf16_wgmma(const void* q, const void* k,
   switch (hd) {
     case 64:
       return launch_tc<64>(q, k, v, out, B, Sq, Sk, H, KV, scale, causal, s);
+    case 96:
+      return launch_tc<96>(q, k, v, out, B, Sq, Sk, H, KV, scale, causal, s);
+    case 112:
+      return launch_tc<112>(q, k, v, out, B, Sq, Sk, H, KV, scale, causal,
+                            s);
     case 128:
       return launch_tc<128>(q, k, v, out, B, Sq, Sk, H, KV, scale, causal,
+                            s);
+    case 192:
+      return launch_tc<192>(q, k, v, out, B, Sq, Sk, H, KV, scale, causal,
                             s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -5,9 +5,10 @@ GQA by query-head groups that share one kv head.  A CUDA tensor launches
 `csrc/flash_attention.cu` (the counterpart of the TPU kernel
 `repro/kernels/flash_attention.py::_flash_kernel`; its source notes its
 design and bound), which masks the ragged edges of Sq and Sk itself, so
-it takes any sequence lengths.  bf16 with hd 64 or 128 runs its TMA +
-wgmma kernel, everything else its SIMT kernel (`variant`).  A CPU
-tensor takes the plain version, `ref.ref_attention`.
+it takes any sequence lengths and any hd up to 256.  bf16 with hd 64,
+96, 112, 128 or 192 runs its TMA + wgmma kernel, everything else its
+SIMT kernel (`variant`).  A CPU tensor takes the plain version,
+`ref.ref_attention`.
 """
 from __future__ import annotations
 
@@ -18,14 +19,16 @@ import torch
 from repro_torch.kernels.ref import ref_attention
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HD = 128                        # dims a warp holds: 4 a lane
-_WGMMA_HD = (64, 128)                # head dims of the tensor-core path
+_MAX_HD = 256                        # dims a warp holds: 8 a lane
+#: head dims of the tensor-core path: whole 64-column boxes, or 96 and
+#: 112 (phi-3-vision's, zamba2's) in two boxes zero-filled past hd
+_WGMMA_HD = (64, 96, 112, 128, 192)
 
 
 def variant(dtype: torch.dtype, hd: int) -> str:
-    """Which kernel (q's dtype, head dim) takes: bf16 with hd 64 or 128
-    the TMA + wgmma kernel, everything else (f32; bf16 with another
-    hd <= 128, such as phi-3-vision's 96 and zamba2's 112) the SIMT one."""
+    """Which kernel (q's dtype, head dim) takes: bf16 with hd 64, 96,
+    112, 128 or 192 the TMA + wgmma kernel, everything else (f32; bf16
+    with another hd <= 256) the SIMT one."""
     return "wgmma_bf16" if dtype == torch.bfloat16 and hd in _WGMMA_HD \
         else "simt"
 

@@ -383,6 +383,10 @@ def _qkv(seed, B, Sq, Sk, H, KV, hd, jdtype, tdtype):
     (2, 128, 200, 8, 2, 32, True),     # ragged Sk: the reference falls back
     (2, 100, 100, 4, 2, 32, True),     # ragged Sq: the reference pads q
     (1, 100, 200, 4, 4, 16, False),    # both ragged, cross-shaped
+    (2, 128, 128, 4, 4, 96, True),     # phi-3-vision's head dim
+    (1, 128, 128, 8, 2, 112, True),    # zamba2's, GQA
+    (1, 128, 128, 8, 2, 192, True),    # nemotron-4-340b's, GQA
+    (1, 64, 200, 4, 2, 192, False),    # hd 192, ragged Sk
 ])
 def test_flash_matches_reference(B, Sq, Sk, H, KV, hd, causal):
     jnp = _jnp()
@@ -411,6 +415,22 @@ def test_flash_bf16_matches_reference():
                                rtol=5e-2, atol=5e-2)
 
 
+@pytest.mark.parametrize("hd", [96, 192])
+def test_flash_bf16_matches_reference_at_wide_heads(hd):
+    """bf16 at the head dims the tensor-core kernel pads (96) or tiles
+    in three boxes (192), at the bf16 test's 5e-2."""
+    jnp = _jnp()
+    from repro.kernels import ops as jops
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(hd, 1, 128, 128, 8, 2, hd,
+                                        jnp.bfloat16, torch.bfloat16)
+    out = ops.flash(qt, kt, vt, causal=True)
+    want = jops.flash(qj, kj, vj, causal=True, bq=64, bkv=64)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=5e-2, atol=5e-2)
+
+
 def test_flash_rejects_bad_shapes():
     q = torch.zeros((1, 8, 6, 16))
     with pytest.raises(ValueError, match="multiple of KV"):
@@ -423,10 +443,12 @@ def test_flash_rejects_bad_shapes():
 
 @pytest.mark.parametrize("dtype,hd,want", [
     (torch.bfloat16, 64, "wgmma_bf16"), (torch.bfloat16, 128, "wgmma_bf16"),
-    (torch.bfloat16, 96, "simt"),        # phi-3-vision's head dim
-    (torch.bfloat16, 112, "simt"),       # zamba2's
-    (torch.bfloat16, 32, "simt"), (torch.float32, 64, "simt"),
-    (torch.float32, 128, "simt")])
+    (torch.bfloat16, 96, "wgmma_bf16"),  # phi-3-vision's head dim
+    (torch.bfloat16, 112, "wgmma_bf16"),  # zamba2's
+    (torch.bfloat16, 192, "wgmma_bf16"),  # nemotron-4-340b's
+    (torch.bfloat16, 32, "simt"), (torch.bfloat16, 256, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 192, "simt")])
 def test_flash_variant_is_chosen_by_dtype_and_head_dim(dtype, hd, want):
     assert fa.variant(dtype, hd) == want
 
@@ -551,7 +573,8 @@ def test_ssd_kernel_matches_plain_version(cuda, BC, Q, nh, hd, ds, hb):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal", FLASH_SHAPES + [
     (2, 128, 200, 8, 2, 32, True), (2, 100, 100, 4, 2, 32, True),
-    (1, 300, 300, 6, 2, 128, True)])
+    (1, 300, 300, 6, 2, 128, True), (1, 300, 300, 6, 2, 192, True),
+    (1, 130, 200, 4, 2, 256, False)])
 def test_flash_kernel_matches_plain_version(cuda, B, Sq, Sk, H, KV, hd,
                                             causal):
     gen = torch.Generator().manual_seed(Sq + Sk)
@@ -564,6 +587,28 @@ def test_flash_kernel_matches_plain_version(cuda, B, Sq, Sk, H, KV, hd,
     assert flash_attention_kernel.launches == n0 + 1
     torch.testing.assert_close(out, ref_attention(q, k, v, causal=causal),
                                rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 192),
+                                      (torch.float32, 256),
+                                      (torch.bfloat16, 256)])
+def test_flash_simt_takes_head_dims_up_to_256(cuda, dtype, hd):
+    """Head dims past 128 (nemotron-4-340b's 192 and up to 256) run the
+    SIMT kernel's 8-dims-a-lane class, with its key and value tiles in
+    dynamic shared memory (64 KB at hd 256); f32 at 1e-3, bf16 at 5e-2."""
+    gen = torch.Generator().manual_seed(hd)
+    q = _randn(gen, (1, 200, 8, hd), dtype, cuda)
+    k = _randn(gen, (1, 230, 2, hd), dtype, cuda)
+    v = _randn(gen, (1, 230, 2, hd), dtype, cuda)
+    by = dict(flash_attention_kernel.launches_by)
+    out = ops.flash(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches_by == {**by,
+                                                  "simt": by["simt"] + 1}
+    tol = 1e-3 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(out.float(), ref_attention(
+        q, k, v, causal=True).float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
@@ -754,11 +799,13 @@ def test_gemm_f32_runs_the_pipelined_simt_path(cuda, M, N, K):
 @pytest.mark.gpu
 @pytest.mark.parametrize("Sq,Sk", [(100, 100), (128, 200), (300, 300)])
 @pytest.mark.parametrize("G", [1, 3, 4])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 96, 112, 128, 192])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bf16_runs_the_wgmma_kernel(cuda, Sq, Sk, G, hd, causal):
-    """bf16 flash with hd 64 and 128 through TMA + wgmma, GQA groups of
-    1, 3 and 4, ragged Sq and Sk, against the plain version at 5e-2."""
+    """bf16 flash through TMA + wgmma at every head dim it takes (96 and
+    112 in boxes zero-filled past hd, 192 in three boxes with 64-key
+    tiles), GQA groups of 1, 3 and 4, ragged Sq and Sk, against the
+    plain version at 5e-2."""
     gen = torch.Generator().manual_seed(Sq + Sk + G + hd)
     B, KV = 2, 2
     q = _randn(gen, (B, Sq, KV * G, hd), torch.bfloat16, cuda)
@@ -785,6 +832,26 @@ def test_bf16_paths_reject_what_their_tiles_do_not_cover(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hd", [96, 112, 192])
+def test_flash_bf16_rejects_misaligned_wide_heads(cuda, hd):
+    """The head dims new to the tensor-core path keep its 16-byte
+    alignment check for the TMA loads, as hd 64 does."""
+    buf = torch.ones(1 + 8 * 2 * hd, device=cuda, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 8, 2, hd)            # 2 bytes past an aligned start
+    assert fa.variant(q.dtype, hd) == "wgmma_bf16"
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        flash_attention_kernel(q, q, q, causal=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_refuses_head_dims_past_256(cuda, dtype):
+    q = torch.ones((1, 4, 2, 257), device=cuda, dtype=dtype)
+    with pytest.raises(ValueError, match="hd <= 256"):
+        flash_attention_kernel(q, q, q, causal=True)
+
+
+@pytest.mark.gpu
 def test_ssd_bf16_path_rejects_misaligned_inputs(cuda):
     BC, Q, nh, hd, g, ds = 1, 64, 2, 64, 1, 64
     buf = torch.zeros(1 + BC * Q * nh * hd, device=cuda, dtype=torch.bfloat16)
@@ -805,8 +872,8 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     xi = torch.ones((64, 64), device=cuda, dtype=torch.int8)
     with pytest.raises(ValueError, match=r"int8 .* \(128, 128, 128\) tiles"):
         gemm.gemm_padded(xi, xi, TilePolicy(64, 64, 64))
-    q = torch.ones((1, 4, 2, 256), device=cuda)
-    with pytest.raises(ValueError, match="hd <= 128"):
+    q = torch.ones((1, 4, 2, 257), device=cuda)
+    with pytest.raises(ValueError, match="hd <= 256"):
         flash_attention_kernel(q, q, q, causal=True)
     arrs = [torch.from_numpy(a).to(cuda) for a in
             _ssd_inputs(np.random.default_rng(0), 1, 8, 2, 4, 4)]
