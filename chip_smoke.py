@@ -21,7 +21,26 @@
 4. Checks the results by the port's own means (shapes, ranges, rollup
    weights and means against the grids, the engine's device half on the
    card against the CPU on the same draws).
-5. Holds the kernel API's kernels (GEMM, SSD intra-chunk, flash
+5. Drives the serve path, the paper's deployment, at the same size: one
+   `SimulatorSource` a job simulating on the card (64 jobs x 1,563
+   devices x 30 s scrapes over the day) -> `Collector` (24 rounds of
+   1 h into a day-long `WindowedRollup`, the histogram kernel ingesting
+   every job's grid every round) -> `ServiceDaemon` paced by a
+   `SimClock` -> `FleetAPIServer` on 127.0.0.1, read by `FleetClient`.
+   The kernel's launch count is set to 0 just before the daemon runs and
+   read just after (at least 64 x 24).  Fails unless the regression
+   alerts are exactly the slowed job's, its episode starts within 6
+   buckets of bucket 144, the rollup's counts equal the plain version's
+   bitwise on every polled grid (sums rtol 1e-5), a second collector
+   fed the same grids from the host through `GridSource`s fires the same
+   alerts by (round, job, kind), and the API answers /v1/fleet, a job,
+   /v1/alerts (equal to the collector's) and top regressions (the slowed
+   job first) with 200 and a repeated /v1/fleet with 304.  Prints the
+   rounds, samples, wall time split into poll and ingest (and the
+   ingest alone, `WindowedRollup.add_grid`), detect and publish, the
+   median GET latency and peak device memory beside the card's name and
+   power limit.
+6. Holds the kernel API's kernels (GEMM, SSD intra-chunk, flash
    attention) against their plain versions at the JAX tests' shapes and
    tolerances, ragged flash shapes included, and the TMA + wgmma paths
    at shapes of their own: bf16 GEMMs whose K_eff (64, 128, 3,072) runs
@@ -33,7 +52,7 @@
    seen to launch its wgmma variant; f32 GEMMs at unpadded shapes,
    straight into the SIMT kernel's zero-filled edges, and f32 flash at
    hd 192 and 256 on the SIMT kernel.
-6. Drives the kernel API's paths at full model width, each with the
+7. Drives the kernel API's paths at full model width, each with the
    launch counts set to 0 just before and read just after: the GEMM
    characterization table and `ops.matmul` on the two dominant GEMMs of
    granite-3-2b and llama3.2-3b in bf16, fp32 and int8, and on
@@ -63,7 +82,8 @@
    load, kernel and library call.
 
 Prints the phase times and peak device memory, then one JSON line with
-every kernel's record and, last, `{"ok": true, "device": {...}}`.  Exits
+every kernel's record (the histogram kernel's also carries
+`serve_launches`, its count over the serve path) and, last, `{"ok": true, "device": {...}}`.  Exits
 non-zero, printing no result, when a phase fails, when CUDA is absent,
 or when run outside a checkout of the repository.
 """
@@ -91,6 +111,11 @@ GEOMETRIC_EDGES = np.geomspace(1e-3, 1.1, 129)
 #: per job grid over the main path's 64, and the whole fleet in one call
 OLD_HIST_MS = {"grid": 0.0395, "fleet": 1.95}
 N_JOBS, ROWS_PER_JOB, DAY_S, SCRAPE_S, BUCKET_S = 64, 1563, 86400.0, 30.0, 300
+#: the serve path's collector rounds, over the main path's whole day,
+#: and the detector settings of the batch path's `scan_rollup` (its
+#: defaults)
+ROUND_S = 3600.0
+DETECTOR = {"window": 10, "factor_threshold": 1.5, "min_duration": 5}
 SLOW_JOB = "job17"
 REPS = 3                        # timed launches after one warm-up
 #: for a kernel of ~0.05 ms, whose first timed launch's ~0.04 ms of host
@@ -325,16 +350,19 @@ def main() -> None:
           f"plain {geo['plain_ms']:.4f} ms")
     profile_phases(torch, specs, {"simulate": t1 - t0, "ingest": t2 - t1})
 
+    # -- 5. the serve path: collector -> daemon -> HTTP API -----------------
+    serve_launches = serve_phase(torch, dev, specs, card)
+
     kernels = [{"name": "fleet_hist", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/fleet_hist.cu",
                 "replaces": "src/repro/kernels/fleet_hist.py:79",
                 "launches": launches["fleet_hist"], **rec,
-                "library_ms": None}]
+                "library_ms": None, "serve_launches": serve_launches}]
 
-    # -- 5. the kernel API's kernels vs their plain versions, small ------
+    # -- 6. the kernel API's kernels vs their plain versions, small ------
     kernel_api_small(torch, dev)
 
-    # -- 6. the kernel API's paths at full model width ----------------------
+    # -- 7. the kernel API's paths at full model width ----------------------
     kernels += kernel_api_paths(torch, dev, {
         "fleet_hist": fh.ofu_bucket_hist, "gemm": gemm.gemm_padded,
         "ssd_intra": ssd_scan.ssd_intra_kernel,
@@ -416,6 +444,255 @@ def compare_hist(torch, fh, grids, col, nb, inv_fmax, reps=1,
     bound_by = max(bound, key=bound.get)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[bound_by], "bound_by": bound_by}
+
+
+def serve_phase(torch, dev, specs, card: str) -> int:
+    """The paper's deployment on the card: one `SimulatorSource` a job
+    (the main path's 64 specs, 1,563 devices each, simulating on the
+    card) -> `Collector` (1 h rounds into a day-long `WindowedRollup`
+    through the histogram kernel) -> `ServiceDaemon` paced by a
+    `SimClock` -> `FleetAPIServer` on the loopback, queried with
+    `FleetClient`.  Checks the kernel's launches, the regression alerts,
+    the rollup's counts against the plain version on every polled grid,
+    the alerts of a host replay of the same grids, and the HTTP answers.
+    Returns the kernel's launch count over the daemon's run."""
+    from repro_torch.fleet.collector import (Collector, CollectorConfig,
+                                             JobStream)
+    from repro_torch.fleet.jobs import _prep_job
+    from repro_torch.fleet.regression import scan_rollup
+    from repro_torch.fleet.streaming import precision_label
+    from repro_torch.kernels import fleet_hist as fh
+    from repro_torch.serve import (FleetAPIServer, FleetClient,
+                                   ServiceDaemon, SimClock)
+    from repro_torch.serve.store import alert_payload
+    from repro_torch.telemetry.scrape import DeviceGrid
+    from repro_torch.telemetry.source import GridSource, SimulatorSource
+
+    def streams():
+        out = []
+        for spec in specs:
+            prof, app, _, stragglers, _ = _prep_job(spec, ROWS_PER_JOB)
+            src = SimulatorSource(
+                prof, duration_s=DAY_S, interval_s=SCRAPE_S,
+                chip=spec.chip, events=spec.events, stragglers=stragglers,
+                n_devices=ROWS_PER_JOB, seed=spec.seed)
+            out.append(JobStream(spec.job_id, src, chips=spec.chips,
+                                 group=precision_label(spec.precisions),
+                                 app_mfu=app, arch=spec.arch,
+                                 chip=spec.chip))
+        return out
+
+    cfg = CollectorConfig(round_s=ROUND_S, bucket_s=BUCKET_S,
+                          retain=int(DAY_S // BUCKET_S), bins=128,
+                          detector=dict(DETECTOR))
+    col = Collector(streams(), cfg)
+    polled = []                          # (job, round, grid) as polled
+    col.on_grid = lambda st, grid: polled.append(
+        (st.job_id, col.round_idx, grid))
+    walls = {"poll and ingest": 0.0, "of which ingest": 0.0, "detect": 0.0,
+             "publish": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            walls[key] += time.perf_counter() - t
+            return out
+        return run
+
+    col._collect = timed(col._collect, "poll and ingest")
+    col.rollup.add_grid = timed(col.rollup.add_grid, "of which ingest")
+    col._detect = timed(col._detect, "detect")
+    clock = SimClock()
+    daemon = ServiceDaemon(col, clock=clock.monotonic, sleep=clock.sleep)
+    daemon.store.update_from = timed(daemon.store.update_from, "publish")
+    try:
+        server = FleetAPIServer(daemon.store, host="127.0.0.1", port=0)
+    except OSError as e:
+        fail(f"serve: cannot bind a loopback socket: {e}")
+    server.start()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fh.ofu_bucket_hist.launches = 0
+        t0 = time.perf_counter()
+        reports = daemon.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fh.ofu_bucket_hist.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_rounds = len(reports)
+        samples = sum(r.samples for r in reports)
+        print(f"serve: {card}: {n_rounds} rounds of {ROUND_S:.0f} s, "
+              f"{len(specs)} jobs x {ROWS_PER_JOB} devices, the day "
+              f"({DAY_S:.0f} s) uncut; {samples} samples; "
+              f"wall {wall:.3f} s ({wall / max(n_rounds, 1):.4f} s a "
+              "round): " + ", ".join(f"{k} {v:.3f} s ({v / n_rounds:.4f} "
+                                     "s a round)" for k, v in walls.items())
+              + f"; peak device memory {peak / 2**30:.3f} GiB; "
+              f"fleet_hist launches {launches}")
+
+        # -- checks ---------------------------------------------------------
+        want_rounds = int(DAY_S // ROUND_S)
+        check(n_rounds == want_rounds and daemon.overruns == 0,
+              f"serve: {n_rounds} rounds ({daemon.overruns} overruns), "
+              f"expected {want_rounds}")
+        check(launches >= len(specs) * want_rounds,
+              f"serve: the histogram kernel launched {launches} times for "
+              f"{len(specs)} jobs x {want_rounds} rounds")
+        check(len(polled) == len(specs) * want_rounds
+              and all(g.tpa.is_cuda for _, _, g in polled),
+              "serve: the polled grids are not one on the card a job and "
+              "round")
+        regressed = {a.job_id for a in col.alerts if a.kind == "regression"}
+        check(regressed == {SLOW_JOB},
+              f"serve: regression alerts for {sorted(regressed)}, expected "
+              f"only {SLOW_JOB}")
+        (reg,) = scan_rollup(col.rollup, jobs=[SLOW_JOB],
+                             **DETECTOR)[SLOW_JOB]
+        start = col.rollup.bucket0 + reg.start_idx
+        fired = next(a for a in col.alerts if a.kind == "regression")
+        print(f"serve: {SLOW_JOB} regression alert at round "
+              f"{fired.round_idx} ({fired.message}); episode starts at "
+              f"bucket {start}")
+        check(abs(start - 144) <= 6 and reg.factor > 1.5,
+              f"serve: regression of {SLOW_JOB} misplaced: {reg}")
+        others = {}
+        for a in col.alerts:
+            if a.kind != "regression":
+                others.setdefault(a.kind, []).append(a.job_id)
+        print("serve: other alerts by kind: "
+              + ("; ".join(f"{k}: {', '.join(sorted(v))}"
+                           for k, v in sorted(others.items())) or "none"))
+        check_serve_counts(torch, fh, col, polled)
+
+        # the same grids on the host, replayed into a second collector
+        t1 = time.perf_counter()
+        by_job = {}
+        for jid, _, g in polled:
+            by_job.setdefault(jid, []).append(g)
+        host = []
+        for st in col.streams:
+            gs = by_job[st.job_id]
+            host.append(JobStream(st.job_id, GridSource(DeviceGrid(
+                SCRAPE_S, torch.cat([g.tpa for g in gs], 1).cpu().numpy(),
+                torch.cat([g.clock_mhz for g in gs], 1).cpu().numpy())),
+                chips=st.chips, group=st.group, app_mfu=st.app_mfu,
+                arch=st.arch, chip=st.chip))
+        replay = Collector(host, cfg)
+        replay.run()
+        keys = [(a.round_idx, a.job_id, a.kind) for a in col.alerts]
+        check(keys == [(a.round_idx, a.job_id, a.kind)
+                       for a in replay.alerts],
+              "serve: the host replay's alerts differ from the card's")
+        print(f"serve: host replay of the same grids through GridSources: "
+              f"{len(keys)} alerts equal by (round, job, kind) "
+              f"({time.perf_counter() - t1:.2f} s)")
+
+        # the HTTP API
+        client = FleetClient(server.url)
+        lat = []
+
+        def get(fn, *a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            lat.append(time.perf_counter() - t)
+            return out
+
+        fleet = get(client.fleet)
+        check(fleet["round_idx"] == n_rounds and fleet["scope"] == "fleet"
+              and len(fleet["mean"]) == cfg.retain
+              and fleet["weighted_ofu"] is not None,
+              f"serve: /v1/fleet answered {str(fleet)[:200]}")
+        job = get(client.job, SLOW_JOB)
+        check(job["id"] == SLOW_JOB and len(job["mean"]) == cfg.retain
+              and job["meta"]["chips"] == 2048,
+              f"serve: /v1/jobs/{SLOW_JOB} answered {str(job)[:200]}")
+        alerts = get(client.alerts)
+        check(alerts["alerts"] == [alert_payload(a) for a in col.alerts],
+              "serve: /v1/alerts differs from the collector's alerts")
+        top = get(client.top_regressions, k=3, **DETECTOR)
+        check(top["regressions"]
+              and top["regressions"][0]["job_id"] == SLOW_JOB,
+              f"serve: top regressions {top['regressions']}")
+        again = get(client.fleet)
+        check(client.hits_304 == 1 and again == fleet,
+              f"serve: repeated /v1/fleet gave {client.hits_304} 304s")
+        print(f"serve: {card}: HTTP 4 GETs answered 200 and a repeat 304; "
+              f"median GET latency {1e3 * float(np.median(lat)):.3f} ms "
+              f"(of {len(lat)}: " + ", ".join(f"{1e3 * x:.3f}" for x in lat)
+              + " ms)")
+    finally:
+        server.stop()
+        daemon.close()
+    del polled
+    torch.cuda.empty_cache()
+    profile_serve(torch, Collector(streams(), cfg))
+    return launches
+
+
+def profile_serve(torch, col, rounds: int = 2) -> None:
+    """Device busy time of serve rounds, from torch.profiler over a fresh
+    collector's rounds after one warm-up round (the timed daemon run
+    carries no profiler cost): the device's idle share and the host ops
+    that hold the most time (a `.cpu()` that waits on the card counts as
+    its copy's host time)."""
+    from torch.profiler import ProfilerActivity, profile
+    col.poll_round()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            col.poll_round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+    dev = [(getattr(e, "self_device_time_total", 0.0), e.count) for e in ev]
+    busy_s = sum(d for d, _ in dev) / 1e6
+    host = sorted(((e.self_cpu_time_total, e.count, e.key) for e in ev),
+                  reverse=True)[:5]
+    top = "; ".join(f"{k[:40]} {us / 1e3:.1f} ms x{n}" for us, n, k in host)
+    if busy_s <= 0:
+        print("profile serve: device time not measured (the profiler saw "
+              "no device activity)")
+        return
+    print(f"profile serve: {rounds} rounds under the profiler: device busy "
+          f"{busy_s:.4f} s of {wall:.4f} s wall (idle share "
+          f"{1 - busy_s / wall:.3f}), {sum(n for d, n in dev if d > 0)} "
+          f"device ops; top host self time: {top}")
+
+
+def check_serve_counts(torch, fh, col, polled) -> None:
+    """The rollup against the plain version on every grid the daemon
+    polled: each (job, bucket) row of counts bitwise (a bucket is filled
+    by one round, as count x weight), sums at rtol 1e-5."""
+    roll = col.rollup
+    chips = {st.job_id: st.chips for st in col.streams}
+    inv_fmax = {st.job_id: 1.0 / st.chip.f_max_mhz for st in col.streams}
+    err = 0.0
+    for jid, _, g in polled:
+        b_abs = np.maximum(np.ceil(g.times_s / roll.bucket_s).astype(int)
+                           - 1, 0)
+        b0, nb = int(b_abs[0]), int(b_abs[-1] - b_abs[0]) + 1
+        hist, sums = fh.bucket_hist_torch(
+            g.tpa, g.clock_mhz, inv_fmax=inv_fmax[jid], edges=roll.edges,
+            col_bucket=b_abs - b0, n_buckets=nb)
+        w = chips[jid] / g.n_devices
+        rows = slice(b0 - roll.bucket0, b0 - roll.bucket0 + nb)
+        check(np.array_equal(roll._hists[("job", jid)][rows],
+                             hist.cpu().numpy().astype(float) * w),
+              f"serve: {jid} counts at buckets {b0}-{b0 + nb - 1} differ "
+              "from the plain version's")
+        want = sums.cpu().numpy() * w
+        got = roll._sums[("job", jid)][rows]
+        check(np.allclose(got, want, rtol=1e-5, atol=0.0),
+              f"serve: {jid} sums at buckets {b0}-{b0 + nb - 1} beyond "
+              "rtol 1e-5 of the plain version's")
+        err = max(err, float(np.abs(got - want).max()))
+    print(f"serve: rollup against the plain version on {len(polled)} polled "
+          f"grids: counts bitwise equal, max |dsum| {err:.3e}")
 
 
 def profile_phases(torch, specs, walls: dict) -> None:

@@ -4,7 +4,7 @@
 `fleet.engine_torch` simulates each group on the device; this module
 holds what every backend shares and never touches a device itself,
 except that `apply_faults` multiplies a grid by its masks on the grid's
-own device.
+own device, and `simulate_devices` hands one job to `engine_torch`.
 """
 from __future__ import annotations
 
@@ -162,6 +162,40 @@ def apply_faults(grid: DeviceGrid,
     tpa = (grid.tpa * duty_f).clip(0.0, 1.0)
     clk = (grid.clock_mhz * clock_f).clip(0.0, None)
     return DeviceGrid(grid.interval_s, tpa, clk, t0_s=grid.t0_s)
+
+
+def simulate_devices(profile: StepProfile, *, duration_s: float,
+                     interval_s: float,
+                     chip: ChipSpec = DEFAULT_CHIP,
+                     clock_model: Optional[ClockModel] = None,
+                     events: Sequence[Event] = (),
+                     stragglers=None, n_devices: Optional[int] = None,
+                     seed: int = 0,
+                     params: Optional[EngineParams] = None,
+                     device=None) -> DeviceGrid:
+    """Simulate a whole device group's counter streams in one shot, on
+    `device` (the current CUDA device when None).
+
+    stragglers: optional (n_devices,) per-device step-time multipliers;
+    defaults to 1.0 everywhere.  All devices share the step profile and
+    event timeline; straggler spread is the per-device degree of
+    freedom.  n_devices defaults to len(stragglers) (or 1); passing BOTH
+    requires them to agree.
+
+    A single-slot pass of `engine_torch.simulate_jobs_torch`: the grid's
+    tpa/clock are (n_devices, n_samples) float32 tensors on `device`.
+    """
+    from repro_torch.fleet.engine_torch import simulate_jobs_torch
+    if stragglers is None:
+        stragglers = np.ones(1 if n_devices is None else n_devices)
+    stragglers = np.asarray(stragglers, float)
+    if n_devices is not None and n_devices != len(stragglers):
+        raise ValueError(f"n_devices={n_devices} conflicts with "
+                         f"len(stragglers)={len(stragglers)}")
+    slot = JobSlot(profile, duration_s, interval_s, events=events,
+                   stragglers=stragglers, chip=chip, clock_model=clock_model)
+    return simulate_jobs_torch([slot], seed=seed, params=params,
+                               device=device)[0]
 
 
 def group_slots(slots: Sequence[JobSlot]) -> dict:

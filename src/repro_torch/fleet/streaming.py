@@ -238,8 +238,11 @@ class StreamingRollup:
         b_abs = np.maximum(
             np.ceil(t_s / self.bucket_s).astype(int) - 1, 0)
         b0 = int(b_abs[0])
+        # a replayed slice (`GridSource.poll`) is a strided view; the
+        # kernel reads whole rows
         hist, sums = ofu_bucket_hist(
-            grid.tpa, grid.clock_mhz, inv_fmax=inv_fmax, edges=self.edges,
+            grid.tpa.contiguous(), grid.clock_mhz.contiguous(),
+            inv_fmax=inv_fmax, edges=self.edges,
             col_bucket=b_abs - b0, n_buckets=int(b_abs[-1]) - b0 + 1)
         self.observe_hist(job_id, hist.cpu().numpy().astype(float),
                           sums.cpu().numpy(), b0=b0, group=group,
