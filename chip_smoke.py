@@ -40,7 +40,41 @@
    ingest alone, `WindowedRollup.add_grid`), detect and publish, the
    median GET latency and peak device memory beside the card's name and
    power limit.
-6. Holds the kernel API's kernels (GEMM, SSD intra-chunk, flash
+6. Runs the labelled-incident scorecard on the card: `run_scorecard` over
+   the 8 scenarios at their own geometry (2 h of 30 s scrapes, 300 s
+   rounds, 4 sampled devices a job), the histogram kernel ingesting every
+   replayed grid.  Fails unless every pinned floor holds, the kernel
+   launched once a (job, round) grid with samples (816, worked out from
+   the scenarios) and a replay of the same grids from the host fires the
+   same alerts.  Prints each (scenario, detector)'s precision, recall and
+   time-to-detect beside the reference's in
+   `tests/data/golden_scorecard.json`, for reading only.
+7. Runs the paper's Table III / Fig. 5 fleet at every GPU on the card:
+   `table3.build_jobs(max_devices=5888)`, 608 jobs, 389,744 devices x 40
+   samples, batch-ingested (608 launches, counts bitwise and sums rtol
+   1e-5 against the plain version on every job grid) and analysed by
+   `divergence.analyze` and `analyze_correlation`, then replayed live
+   through a `Collector` (4 rounds, 2,432 launches), `FleetStore` and
+   the HTTP API.  Fails unless exactly the 82 `naive_moe` and
+   `naive_hybrid` jobs are flagged on both detectors and in the live
+   miscalc alerts, r after exclusion >= 0.75 and the live per-job
+   bucket counts equal the offline ones (means within rtol 1e-5: the
+   kernel's sums land by atomics in no fixed order).  Prints r, MAE, the
+   per-scale rows and the wall time of simulate, ingest, analyze and the
+   live replay, and profiles two live rounds.
+8. Runs the DCGM acquisition tier over 8 GPUs whose counters are
+   simulated on the card (`FakeDcgmTransport`, 1 h of 30 s scrapes, a
+   2.5x slowdown from 1,800 s) -> `make_dcgm_backends` ->
+   `BackendSource` -> `Collector` -> `ServiceDaemon` -> `FleetAPIServer`.
+   Fails unless every backend is healthy after 960 polls, the
+   regression alert is served, the served series equal bitwise those of
+   the simulator's chunks copied to host and replayed the same way,
+   injected transport faults change no sample, and the simulator's card
+   grids ingested by the kernel (12 launches) give the same alerts,
+   series within rtol 1e-5 and counts apart by at most the samples
+   within 4 f32 ulps of a bin edge.  Prints whether `dcgmi` is on PATH
+   and `pynvml` imports; no transport is chosen from it.
+9. Holds the kernel API's kernels (GEMM, SSD intra-chunk, flash
    attention) against their plain versions at the JAX tests' shapes and
    tolerances, ragged flash shapes included, and the TMA + wgmma paths
    at shapes of their own: bf16 GEMMs whose K_eff (64, 128, 3,072) runs
@@ -52,7 +86,7 @@
    seen to launch its wgmma variant; f32 GEMMs at unpadded shapes,
    straight into the SIMT kernel's zero-filled edges, and f32 flash at
    hd 192 and 256 on the SIMT kernel.
-7. Drives the kernel API's paths at full model width, each with the
+10. Drives the kernel API's paths at full model width, each with the
    launch counts set to 0 just before and read just after: the GEMM
    characterization table and `ops.matmul` on the two dominant GEMMs of
    granite-3-2b and llama3.2-3b in bf16, fp32 and int8, and on
@@ -83,9 +117,11 @@
 
 Prints the phase times and peak device memory, then one JSON line with
 every kernel's record (the histogram kernel's also carries
-`serve_launches`, its count over the serve path) and, last, `{"ok": true, "device": {...}}`.  Exits
-non-zero, printing no result, when a phase fails, when CUDA is absent,
-or when run outside a checkout of the repository.
+`serve_launches`, `scorecard_launches`, `table3_launches` and
+`live_launches`, its counts over phases 5-8) and, last,
+`{"ok": true, "device": {...}}`.  Exits non-zero, printing no result,
+when a phase fails, when CUDA is absent, or when run outside a checkout
+of the repository.
 """
 from __future__ import annotations
 
@@ -117,6 +153,8 @@ N_JOBS, ROWS_PER_JOB, DAY_S, SCRAPE_S, BUCKET_S = 64, 1563, 86400.0, 30.0, 300
 ROUND_S = 3600.0
 DETECTOR = {"window": 10, "factor_threshold": 1.5, "min_duration": 5}
 SLOW_JOB = "job17"
+#: Table III at every GPU: the largest job's chips as the per-job cap
+TABLE3_DEVICES = 5888
 REPS = 3                        # timed launches after one warm-up
 #: for a kernel of ~0.05 ms, whose first timed launch's ~0.04 ms of host
 #: work (the events bracket it) would add a quarter over 3 launches
@@ -353,16 +391,26 @@ def main() -> None:
     # -- 5. the serve path: collector -> daemon -> HTTP API -----------------
     serve_launches = serve_phase(torch, dev, specs, card)
 
+    # -- 6-8. the paper's evaluation: scorecard, Table III, acquisition -----
+    t0 = time.perf_counter()
+    scorecard_launches = scorecard_phase(torch, card)
+    table3_launches = table3_phase(torch, dev, card)
+    live_launches = live_phase(torch, card)
+    print(f"evaluation phases 6-8: {time.perf_counter() - t0:.2f} s")
+
     kernels = [{"name": "fleet_hist", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/fleet_hist.cu",
                 "replaces": "src/repro/kernels/fleet_hist.py:79",
                 "launches": launches["fleet_hist"], **rec,
-                "library_ms": None, "serve_launches": serve_launches}]
+                "library_ms": None, "serve_launches": serve_launches,
+                "scorecard_launches": scorecard_launches,
+                "table3_launches": table3_launches,
+                "live_launches": live_launches}]
 
-    # -- 6. the kernel API's kernels vs their plain versions, small ------
+    # -- 9. the kernel API's kernels vs their plain versions, small ------
     kernel_api_small(torch, dev)
 
-    # -- 7. the kernel API's paths at full model width ----------------------
+    # -- 10. the kernel API's paths at full model width ---------------------
     kernels += kernel_api_paths(torch, dev, {
         "fleet_hist": fh.ofu_bucket_hist, "gemm": gemm.gemm_padded,
         "ssd_intra": ssd_scan.ssd_intra_kernel,
@@ -632,9 +680,10 @@ def serve_phase(torch, dev, specs, card: str) -> int:
     return launches
 
 
-def profile_serve(torch, col, rounds: int = 2) -> None:
-    """Device busy time of serve rounds, from torch.profiler over a fresh
-    collector's rounds after one warm-up round (the timed daemon run
+def profile_serve(torch, col, rounds: int = 2,
+                  label: str = "serve") -> None:
+    """Device busy time of collector rounds, from torch.profiler over a
+    fresh collector's rounds after one warm-up round (the timed run
     carries no profiler cost): the device's idle share and the host ops
     that hold the most time (a `.cpu()` that waits on the card counts as
     its copy's host time)."""
@@ -655,24 +704,431 @@ def profile_serve(torch, col, rounds: int = 2) -> None:
                   reverse=True)[:5]
     top = "; ".join(f"{k[:40]} {us / 1e3:.1f} ms x{n}" for us, n, k in host)
     if busy_s <= 0:
-        print("profile serve: device time not measured (the profiler saw "
-              "no device activity)")
+        print(f"profile {label}: device time not measured (the profiler "
+              "saw no device activity)")
         return
-    print(f"profile serve: {rounds} rounds under the profiler: device busy "
+    print(f"profile {label}: {rounds} rounds under the profiler: device busy "
           f"{busy_s:.4f} s of {wall:.4f} s wall (idle share "
           f"{1 - busy_s / wall:.3f}), {sum(n for d, n in dev if d > 0)} "
           f"device ops; top host self time: {top}")
+
+
+def scorecard_phase(torch, card: str) -> int:
+    """The labelled-incident scorecard on the card: `run_scorecard` at the
+    reference's geometry (8 scenarios, 2 h of 30 s scrapes, 300 s rounds,
+    4 sampled devices a job), the histogram kernel ingesting every
+    replayed grid.  Checks every pinned floor, the kernel's launches
+    against the (job, round) grids that hold samples, and that a replay
+    of the same grids from the host fires the same alerts.  Returns the
+    kernel's launch count over `run_scorecard`."""
+    from dataclasses import replace
+
+    from repro_torch.kernels import fleet_hist as fh
+    from repro_torch.scenarios import (build, check_floors, scenario_names,
+                                       scorecard)
+    from repro_torch.telemetry.scrape import DeviceGrid
+
+    # one grid a (job, round) with samples: the collector's right-closed
+    # rounds over each job's scrape instants
+    want = 0
+    for name in scenario_names():
+        sc = build(name)
+        for spec in sc.specs:
+            n = int(spec.duration_s // spec.scrape_interval_s)
+            t = spec.scrape_interval_s * np.arange(1, n + 1)
+            want += np.unique(np.ceil(t / sc.round_s) - 1).size
+    runs = []
+    run_scenario, simulate_fleet = scorecard.run_scenario, \
+        scorecard.simulate_fleet
+
+    def recorded(sc, **kw):             # keeps each run's grids
+        runs.append(run_scenario(sc, **kw))
+        return runs[-1]
+
+    scorecard.run_scenario = recorded
+    try:
+        torch.cuda.synchronize()
+        fh.ofu_bucket_hist.launches = 0
+        t0 = time.perf_counter()
+        doc = scorecard.run_scorecard()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fh.ofu_bucket_hist.launches
+    finally:
+        scorecard.run_scenario = run_scenario
+    bad = check_floors(doc)
+    n_alerts = sum(e["n_alerts"] for e in doc["scenarios"].values())
+    print(f"scorecard: {card}: {len(doc['scenarios'])} scenarios, "
+          f"{sum(len(r.telemetry) for r in runs)} jobs x 4 devices, "
+          f"engine {doc['engine']} on the card; {n_alerts} alerts; "
+          f"{wall:.3f} s; fleet_hist launches {launches} (non-empty (job, "
+          f"round) grids {want}); floors violated: {bad or 'none'}")
+    check(doc["engine"] == "torch" and all(
+        r.telemetry[0].grid.tpa.is_cuda for r in runs),
+        "scorecard: the scenarios did not simulate on the card")
+    check(not bad, f"scorecard: floors violated on the card: {bad}")
+    check(launches == want, f"scorecard: the histogram kernel launched "
+          f"{launches} times for {want} non-empty (job, round) grids")
+
+    # the same grids from the host (CPU tensors: the plain version ingests)
+    t0 = time.perf_counter()
+    for run in runs:
+        host = [replace(t, grid=DeviceGrid(
+            t.grid.interval_s, t.grid.tpa.cpu(), t.grid.clock_mhz.cpu(),
+            t0_s=t.grid.t0_s)) for t in run.telemetry]
+        scorecard.simulate_fleet = lambda specs, **kw: host
+        try:
+            again = scorecard.run_scenario(run.scenario, device="cpu")
+        finally:
+            scorecard.simulate_fleet = simulate_fleet
+        # the factors carry the bucket means, equal to rounding
+        check([(a.round_idx, a.t_s, a.job_id, a.kind) for a in again.alerts]
+              == [(a.round_idx, a.t_s, a.job_id, a.kind) for a in run.alerts]
+              and np.allclose([a.factor for a in again.alerts],
+                              [a.factor for a in run.alerts], rtol=1e-5,
+                              atol=0.0, equal_nan=True),
+              f"scorecard: {run.scenario.name}: the host replay's alerts "
+              "differ from the card's")
+    print(f"scorecard: host replay of the same grids through GridSources: "
+          f"{n_alerts} alerts equal ({time.perf_counter() - t0:.2f} s)")
+    golden = Path(__file__).resolve().parent / "tests" / "data" \
+        / "golden_scorecard.json"
+    ref = json.loads(golden.read_text())["scenarios"]
+    def fmt(d):
+        ttd = "-" if d["ttd_s"] is None else f"{d['ttd_s']:.0f} s"
+        return f"P {d['precision']:.3f} R {d['recall']:.3f} ttd {ttd}"
+
+    print("scorecard (scenario/detector): card | reference, the golden "
+          "document (fused engine, CPU)")
+    for name, entry in doc["scenarios"].items():
+        for det, d in entry["detectors"].items():
+            print(f"  {name}/{det}: {fmt(d)} | "
+                  f"{fmt(ref[name]['detectors'][det])}")
+    return launches
+
+
+def table3_phase(torch, dev, card: str) -> int:
+    """The paper's Table III / Fig. 5 fleet at every GPU on the card: 608
+    jobs, 389,744 devices x 40 samples (`table3.build_jobs(max_devices=
+    5888)`), batch-ingested through the histogram kernel (one launch a
+    job), analysed by `divergence.analyze` and `analyze_correlation`,
+    then replayed live through a `Collector` (4 rounds of one bucket,
+    one launch a job and round) into `FleetStore` and the HTTP API.
+    Holds the reference tool's self-check: the flagged set is exactly
+    the 82 `naive_moe` and `naive_hybrid` jobs on both detectors and in
+    the live miscalc alerts, r after exclusion >= 0.75, live per-job
+    bucket counts equal to the offline ones.  Returns the kernel's launch
+    count over the phase."""
+    from repro_torch.fleet import table3
+    from repro_torch.fleet.collector import Collector, CollectorConfig
+    from repro_torch.fleet.correlation import analyze_correlation
+    from repro_torch.fleet.divergence import analyze
+    from repro_torch.kernels import fleet_hist as fh
+    from repro_torch.serve import FleetAPIServer, FleetClient, FleetStore
+
+    walls = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)    # earlier phases' tensors
+    fh.ofu_bucket_hist.launches = 0
+    t0 = time.perf_counter()
+    jobs = table3.build_jobs(max_devices=TABLE3_DEVICES)
+    torch.cuda.synchronize()
+    walls["simulate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    roll, mfu = table3.offline_rollups(jobs)
+    torch.cuda.synchronize()
+    walls["ingest"] = time.perf_counter() - t0
+    offline = fh.ofu_bucket_hist.launches
+    t0 = time.perf_counter()
+    rep = analyze(roll.to_job_points(), flag_rel_err=table3.FLAG_REL_ERR)
+    crep = analyze_correlation(mfu, roll)
+    walls["analyze"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    col = Collector(table3.to_streams(jobs),
+                    CollectorConfig(round_s=table3.ROUND_S,
+                                    bucket_s=table3.BUCKET_S,
+                                    flag_rel_err=table3.FLAG_REL_ERR))
+    reports = col.run()
+    torch.cuda.synchronize()
+    walls["live replay"] = time.perf_counter() - t0
+    launches = fh.ofu_bucket_hist.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    n_dev = sum(j.telemetry.grid.n_devices for j in jobs)
+    n_s = {j.telemetry.grid.tpa.shape[1] for j in jobs}
+    want_dev = sum(chips * n for chips, n in table3.SCALE_MIX)
+    print(f"table3: {card}: {len(jobs)} jobs, {n_dev} devices x {n_s} "
+          f"samples ({n_dev * max(n_s)} samples); "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+          + f"; {len(reports)} live rounds; peak device memory "
+          f"{(peak - base) / 2**30:.3f} GiB over the {base / 2**30:.3f} GiB "
+          f"held before; fleet_hist launches {offline} offline, "
+          f"{launches - offline} live")
+    check(len(jobs) == 608 and n_dev == want_dev and n_s == {40},
+          f"table3: {len(jobs)} jobs, {n_dev} devices x {n_s} samples, "
+          f"expected 608, {want_dev} x 40")
+    check(all(j.telemetry.grid.tpa.is_cuda for j in jobs),
+          "table3: the grids are not on the card")
+    check(offline == len(jobs) and launches - offline == len(jobs) * 4
+          and len(reports) == 4,
+          f"table3: the histogram kernel launched {offline} times offline "
+          f"and {launches - offline} live over {len(reports)} rounds, "
+          f"expected {len(jobs)} and {len(jobs) * 4}")
+    check_counts(torch, fh, roll, [(j.job_id, j.telemetry.grid)
+                                   for j in jobs],
+                 {j.job_id: j.spec.chips for j in jobs},
+                 {j.job_id: 1.0 / j.spec.chip.f_max_mhz for j in jobs},
+                 "table3 offline")
+
+    truth = table3.affected_ids(jobs)
+    affected = set().union(*truth.values())
+    flagged = {p.job_id for p in rep.flagged}
+    cflagged = {f.job_id for f in crep.flagged}
+    print(f"table3 divergence: r_all {rep.r_all:.6f} r_after_exclusion "
+          f"{rep.r_clean:.6f} mae {rep.mae_all:.6f} flagged {len(flagged)} "
+          f"exact_match {flagged == affected}; correlation: r_all "
+          f"{crep.r_all:.6f} r_after_exclusion {crep.r_clean:.6f} mae "
+          f"{crep.mae:.6f} flagged {len(cflagged)} exact_match "
+          f"{cflagged == affected}; affected "
+          f"{ {k: len(v) for k, v in sorted(truth.items())} }")
+    for chips, (n, mfu_pct, err) in sorted(rep.by_scale.items()):
+        print(f"table3.gpus={chips} jobs={n} mfu={mfu_pct * 100:.1f}% "
+              f"abs_err={err * 100:.1f}pp")
+    check(len(affected) == 82, f"table3: {len(affected)} affected jobs")
+    check(flagged == affected and cflagged == affected,
+          f"table3: flagged {len(flagged)} (divergence) and {len(cflagged)} "
+          f"(correlation), expected exactly the {len(affected)} affected; "
+          f"extra {sorted((flagged | cflagged) - affected)[:5]}, missing "
+          f"{sorted(affected - (flagged & cflagged))[:5]}")
+    check(crep.r_clean >= 0.75 and rep.r_clean >= 0.75,
+          f"table3: r after exclusion {rep.r_clean:.3f} / "
+          f"{crep.r_clean:.3f} < 0.75")
+
+    # the live half, as the reference tool's self-check holds it, but for
+    # the bucket means: B1's sums land by atomics in no fixed order, so a
+    # job's one offline launch and its four live ones agree to rounding
+    # (rtol 1e-5), where the host path's sums are equal by construction
+    miscalc = {a.job_id for a in col.alerts if a.kind == "miscalc"}
+    check(miscalc == affected, f"table3: live miscalc alerts name "
+          f"{len(miscalc)} jobs, expected the {len(affected)} affected")
+    rel = 0.0
+    for job in jobs:
+        key = ("job", job.job_id)
+        n = roll._hists[key].shape[0]
+        so = roll.job_stats(job.job_id)
+        sl = col.rollup.job_stats(job.job_id)
+        check(np.array_equal(roll._hists[key], col.rollup._hists[key][:n])
+              and np.array_equal(so.weight, sl.weight[:n])
+              and all(np.array_equal(so.percentiles[q],
+                                     sl.percentiles[q][:n], equal_nan=True)
+                      for q in so.percentiles),
+              f"table3: {job.job_id}: live counts differ from offline")
+        check(np.allclose(so.mean, sl.mean[:n], rtol=1e-5, atol=0.0,
+                          equal_nan=True),
+              f"table3: {job.job_id}: live OFU bucket means beyond rtol "
+              "1e-5 of offline")
+        rel = max(rel, float(np.nanmax(np.abs(so.mean - sl.mean[:n])
+                                       / so.mean)))
+        io_, vo = mfu.job_series(job.job_id)
+        il, vl = col.mfu.job_series(job.job_id)
+        check(np.array_equal(io_, il) and np.array_equal(vo, vl),
+              f"table3: {job.job_id}: live MFU buckets differ from offline")
+    store = FleetStore()
+    store.update_from(col)
+    with FleetAPIServer(store, host="127.0.0.1", port=0) as server:
+        client = FleetClient(server.url)
+        div = client.divergence(flag_rel_err=table3.FLAG_REL_ERR)
+        corr = client.correlation()
+    check({f["job_id"] for f in div["flagged"]} == affected
+          and {f["job_id"] for f in corr["flagged"]} == affected,
+          "table3: the served flagged sets differ from the affected jobs")
+    dr = 0.0
+    for name, live, off in [("divergence r_all", div["r_all"], rep.r_all),
+                            ("divergence r_clean", div["r_clean"],
+                             rep.r_clean),
+                            ("correlation r_all", corr["r_all"], crep.r_all),
+                            ("correlation r_clean", corr["r_clean"],
+                             crep.r_clean)]:
+        check(abs(live - off) < 1e-5, f"table3: served {name} {live} is "
+              f"not within 1e-5 of offline {off}")
+        dr = max(dr, abs(live - off))
+    print(f"table3 live: {len(jobs)} jobs x {len(reports)} rounds through "
+          f"a Collector, FleetStore and the HTTP API: miscalc alerts, "
+          f"served divergence and correlation flag exactly the "
+          f"{len(affected)} affected; per-job counts, weights, percentiles "
+          f"and MFU buckets equal offline, OFU bucket means within "
+          f"{rel:.2e} (rel); served r_after_exclusion {corr['r_clean']:.6f}, "
+          f"max |r live - r offline| {dr:.2e}")
+    profile_serve(torch, Collector(table3.to_streams(jobs), CollectorConfig(
+        round_s=table3.ROUND_S, bucket_s=table3.BUCKET_S,
+        flag_rel_err=table3.FLAG_REL_ERR)), label="table3 live")
+    return launches
+
+
+def live_phase(torch, card: str) -> int:
+    """The acquisition tier, one DGX H100 node's worth: 8 GPUs whose
+    counters are SIMULATED on the card (`FakeDcgmTransport`, 1 h of 30 s
+    scrapes, 2.5x slowdown from 1,800 s) -> `make_dcgm_backends` ->
+    `BackendSource` -> `Collector` -> `ServiceDaemon` -> `FleetAPIServer`.
+    Holds the reference tool's self-check: healthy backends with every
+    poll made, the regression alert served, the served series bitwise
+    equal to the simulator's host-copied chunks replayed the same way,
+    and injected transport faults sample-transparent.  Then the
+    simulator's card grids, ingested by the histogram kernel, against
+    the live path: the same alerts, series within rtol 1e-5, counts
+    apart by at most the samples that lie within 4 f32 ulps of a bin
+    edge.  Returns the kernel's launch count over the phase."""
+    import importlib.util
+    import shutil
+
+    from repro_torch.fleet.collector import (Collector, CollectorConfig,
+                                             JobStream)
+    from repro_torch.kernels import fleet_hist as fh
+    from repro_torch.serve import (FleetAPIServer, FleetClient,
+                                   ServiceDaemon, SimClock)
+    from repro_torch.telemetry.backends import (FakeDcgmTransport,
+                                                make_dcgm_backends)
+    from repro_torch.telemetry.counters import Event, StepProfile
+    from repro_torch.telemetry.scrape import DeviceGrid
+    from repro_torch.telemetry.source import (BackendSource, GridSource,
+                                              SimulatorSource)
+
+    print(f"live: dcgmi on PATH: {shutil.which('dcgmi') is not None}; "
+          f"pynvml importable: "
+          f"{importlib.util.find_spec('pynvml') is not None}")
+    profile = StepProfile(mxu_time_s=0.84, step_time_s=2.0)
+    n_dev, interval, duration, round_s, seed = 8, 30.0, 3600.0, 300.0, 7
+    events = [Event(1800, 3600, slowdown=2.5)]
+    cfg = CollectorConfig(round_s=round_s, bucket_s=round_s, retain=12,
+                          detector={"window": 3, "min_duration": 1})
+
+    def serve(source):
+        clk = SimClock()
+        col = Collector([JobStream("live", source)], cfg)
+        daemon = ServiceDaemon(col, clock=clk.monotonic, sleep=clk.sleep)
+        with daemon, FleetAPIServer(daemon.store, host="127.0.0.1",
+                                    port=0) as server:
+            daemon.run()
+            client = FleetClient(server.url)
+            return (client.fleet(), client.job("live"), client.alerts(),
+                    col)
+
+    def live(fail_every=None):
+        transport = FakeDcgmTransport(
+            profile, duration_s=duration, interval_s=interval,
+            n_devices=n_dev, chunk_s=round_s, events=events, seed=seed,
+            fail_every=fail_every)
+        backends = make_dcgm_backends(transport, n_dev,
+                                      sleep=lambda s: None)
+        return backends, BackendSource(backends=backends,
+                                       duration_s=duration,
+                                       interval_s=interval)
+
+    def sim():
+        return SimulatorSource(profile, duration_s=duration,
+                               interval_s=interval, n_devices=n_dev,
+                               seed=seed, events=events)
+
+    torch.cuda.synchronize()
+    fh.ofu_bucket_hist.launches = 0
+    t0 = time.perf_counter()
+    backends, src = live()
+    fleet, job, alerts, lcol = serve(src)
+    wall = time.perf_counter() - t0
+    polls = sum(b.polls for b in backends)
+    check(all(b.healthy for b in backends)
+          and polls == n_dev * duration / interval,
+          f"live: {sum(b.healthy for b in backends)}/{n_dev} backends "
+          f"healthy, {polls} polls")
+    reg = next((a for a in alerts["alerts"] if a["kind"] == "regression"),
+               None)
+    check(reg is not None, f"live: no regression alert served: {alerts}")
+
+    # the simulator's card chunks at the same cadence, copied to host
+    # float64 once and replayed through a GridSource
+    s = sim()
+    chunks = [s.poll(round_s) for _ in range(int(duration // round_s))]
+    check(all(c.tpa.is_cuda for c in chunks),
+          "live: the simulator's chunks are not on the card")
+    host = DeviceGrid(interval, *(np.concatenate(
+        [getattr(c, k).cpu().numpy().astype(np.float64) for c in chunks],
+        axis=1) for k in ("tpa", "clock_mhz")))
+    r_fleet, r_job, r_alerts, _ = serve(GridSource(host))
+    check((fleet, job, alerts) == (r_fleet, r_job, r_alerts),
+          "live: the served series differ from the host replay's")
+    flaky, fsrc = live(fail_every=97)
+    f_fleet, f_job, _, _ = serve(fsrc)
+    retries = sum(b.retries for b in flaky)
+    check(retries > 0 and all(b.healthy for b in flaky)
+          and (f_fleet, f_job) == (fleet, job),
+          f"live: injected faults ({retries} retries) changed the served "
+          "samples")
+
+    # the card path: the simulator's grids, ingested by the kernel
+    c_fleet, c_job, c_alerts, ccol = serve(sim())
+    launches = fh.ofu_bucket_hist.launches
+    keys = ("round_idx", "t_s", "job_id", "kind")
+    check([[a[k] for k in keys] for a in c_alerts["alerts"]]
+          == [[a[k] for k in keys] for a in alerts["alerts"]]
+          and np.allclose([a["factor"] for a in c_alerts["alerts"]],
+                          [a["factor"] for a in alerts["alerts"]],
+                          rtol=1e-5, atol=0.0),
+          "live: the card path's alerts differ from the live path's")
+    moved = float(np.abs(ccol.rollup._hists[("job", "live")]
+                         - lcol.rollup._hists[("job", "live")]).sum()) / 2
+    ofu = host.tpa * host.clock_mhz / lcol.streams[0].chip.f_max_mhz
+    e32 = lcol.rollup.edges.astype(np.float32)
+    k = np.clip(np.searchsorted(e32.astype(np.float64), ofu), 1,
+                len(e32) - 1)
+    near = np.minimum(np.abs(ofu - e32[k - 1]) / np.spacing(e32[k - 1]),
+                      np.abs(ofu - e32[k]) / np.spacing(e32[k]))
+    n_near = int((near <= 4).sum())
+    rel = 0.0
+    for got, want in ((c_fleet, fleet), (c_job, job)):
+        check(got["t_s"] == want["t_s"] and got["weight"] == want["weight"]
+              and np.allclose(got["mean"], want["mean"], rtol=1e-5,
+                              atol=0.0),
+              "live: the card path's series differ beyond rtol 1e-5")
+        rel = max(rel, float(np.max(np.abs(np.subtract(got["mean"],
+                                                       want["mean"]))
+                                    / np.abs(want["mean"]))))
+    check(moved <= n_near, f"live: {moved:.0f} samples changed bins "
+          f"between card and host ingest, more than the {n_near} within "
+          "4 f32 ulps of an edge")
+    check(launches == int(duration // round_s), f"live: the histogram "
+          f"kernel launched {launches} times for the card path's "
+          f"{int(duration // round_s)} rounds")
+    print(f"live: {card}: SIMULATED counters (FakeDcgmTransport on the "
+          f"card) -> {n_dev} DcgmFieldBackends -> BackendSource -> "
+          f"Collector -> ServiceDaemon -> HTTP: {polls} polls, all healthy, "
+          f"{len(fleet['t_s'])} buckets served bitwise equal to the host "
+          f"replay of the simulator's chunks; regression alert "
+          f"'{reg['message']}'; fail_every=97: {retries} "
+          f"retries, samples unchanged; card ingest (fleet_hist launches "
+          f"{launches}): alerts equal, series max rel diff {rel:.2e}, "
+          f"{moved:.0f} samples moved bins ({n_near} within 4 f32 ulps of "
+          f"an edge); {wall:.3f} s the live run")
+    return launches
 
 
 def check_serve_counts(torch, fh, col, polled) -> None:
     """The rollup against the plain version on every grid the daemon
     polled: each (job, bucket) row of counts bitwise (a bucket is filled
     by one round, as count x weight), sums at rtol 1e-5."""
-    roll = col.rollup
     chips = {st.job_id: st.chips for st in col.streams}
     inv_fmax = {st.job_id: 1.0 / st.chip.f_max_mhz for st in col.streams}
+    check_counts(torch, fh, col.rollup, [(jid, g) for jid, _, g in polled],
+                 chips, inv_fmax, "serve")
+
+
+def check_counts(torch, fh, roll, grids, chips: dict, inv_fmax: dict,
+                 label: str) -> None:
+    """The rollup's job rows against the plain version on each (job, grid)
+    it ingested: counts bitwise (as count x weight; each grid fills its
+    own buckets), sums at rtol 1e-5."""
     err = 0.0
-    for jid, _, g in polled:
+    for jid, g in grids:
         b_abs = np.maximum(np.ceil(g.times_s / roll.bucket_s).astype(int)
                            - 1, 0)
         b0, nb = int(b_abs[0]), int(b_abs[-1] - b_abs[0]) + 1
@@ -683,16 +1139,16 @@ def check_serve_counts(torch, fh, col, polled) -> None:
         rows = slice(b0 - roll.bucket0, b0 - roll.bucket0 + nb)
         check(np.array_equal(roll._hists[("job", jid)][rows],
                              hist.cpu().numpy().astype(float) * w),
-              f"serve: {jid} counts at buckets {b0}-{b0 + nb - 1} differ "
+              f"{label}: {jid} counts at buckets {b0}-{b0 + nb - 1} differ "
               "from the plain version's")
         want = sums.cpu().numpy() * w
         got = roll._sums[("job", jid)][rows]
         check(np.allclose(got, want, rtol=1e-5, atol=0.0),
-              f"serve: {jid} sums at buckets {b0}-{b0 + nb - 1} beyond "
+              f"{label}: {jid} sums at buckets {b0}-{b0 + nb - 1} beyond "
               "rtol 1e-5 of the plain version's")
         err = max(err, float(np.abs(got - want).max()))
-    print(f"serve: rollup against the plain version on {len(polled)} polled "
-          f"grids: counts bitwise equal, max |dsum| {err:.3e}")
+    print(f"{label}: rollup against the plain version on {len(grids)} "
+          f"ingested grids: counts bitwise equal, max |dsum| {err:.3e}")
 
 
 def profile_phases(torch, specs, walls: dict) -> None:

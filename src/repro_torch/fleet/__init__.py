@@ -1,6 +1,6 @@
 """Fleet layer of the port: the torch engine, device-side rollup ingest,
-the rollup wire formats, the detectors, goodput, the correlation tier
-and the continuous collector.
+the rollup wire formats, the detectors, goodput, the correlation tier,
+the continuous collector and the recovery service.
 
 Exports resolve lazily (PEP 562), so the replay path (`fleet.streaming`
 and the detectors fed by a `TraceReplaySource`) never loads the
@@ -60,6 +60,9 @@ _EXPORTS = {
     "precision_label": "repro_torch.fleet.streaming",
     "host_partition": "repro_torch.fleet.distributed",
     "tree_reduce": "repro_torch.fleet.distributed",
+    "RecoveryAction": "repro_torch.fleet.recovery",
+    "RecoveryService": "repro_torch.fleet.recovery",
+    "StragglerMonitor": "repro_torch.fleet.recovery",
     "Regression": "repro_torch.fleet.regression",
     "detect_regressions": "repro_torch.fleet.regression",
     "scan_rollup": "repro_torch.fleet.regression",

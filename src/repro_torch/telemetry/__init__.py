@@ -1,6 +1,11 @@
 """Telemetry layer of the port: counters, the clock model, scrapes, the
 sources behind the collector (simulated on the card, replayed, or an
-in-memory grid), the app-MFU reporter and the columnar trace archives."""
+in-memory grid), the DCGM acquisition tier, the app-MFU reporter and the
+columnar trace archives."""
+from repro_torch.telemetry.backends import (  # noqa: F401
+    DcgmFieldBackend, DcgmiTransport, FakeDcgmTransport, FieldTransport,
+    PynvmlTransport, TransportError, make_dcgm_backends,
+)
 from repro_torch.telemetry.clock import ClockModel  # noqa: F401
 from repro_torch.telemetry.counters import (  # noqa: F401
     MAX_HW_AVG_WINDOW_S, CounterBackend, Event, SimulatedDeviceBackend,
