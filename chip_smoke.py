@@ -115,10 +115,28 @@
    FFN GEMM's int8 and fp32 paths the SM clock and power draw under
    load, kernel and library call.
 
+11. Serves zamba2-7b at full width (bf16, 6.79 B parameters from a
+   seeded generator on the card) through the port's entry points:
+   `make_prefill_step` on `make_inputs` at S = 4,096, which must launch
+   exactly 14 flash and 81 SSD kernels, all on their tensor-core
+   variants (timed; MFU from `step_flops`; a profiler over one
+   forward), then the `launch.serve` greedy loop at B = 4, ctx = 4,096,
+   32 tokens (ms a token beside the byte bound; host launches a token).
+   Correctness at full width: one layer group (the shared block and
+   layers 0-5, S = 512) on the card against the CPU's plain route in f32
+   (`close_rows`) and bf16 (`bf16_close`), and 64 tokens decoded one by
+   one against one forward over them at full depth, in bf16 and, as the
+   witness that the bf16 gap is rounding, in f32, each limit shown to
+   reject an attention output set to zero, an SSD without its diagonal
+   term and an SSD with the next head's decays; then llama3.2-3b,
+   mamba2-780m and whisper-small at published width and 2 layers,
+   forward and 4 decode steps against the CPU with exact launch counts.
+
 Prints the phase times and peak device memory, then one JSON line with
 every kernel's record (the histogram kernel's also carries
 `serve_launches`, `scorecard_launches`, `table3_launches` and
-`live_launches`, its counts over phases 5-8) and, last,
+`live_launches`, its counts over phases 5-8; the flash and SSD kernels'
+carry `model_launches`, their launches in phase 11's prefill) and, last,
 `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result,
 when a phase fails, when CUDA is absent, or when run outside a checkout
 of the repository.
@@ -415,6 +433,14 @@ def main() -> None:
         "fleet_hist": fh.ofu_bucket_hist, "gemm": gemm.gemm_padded,
         "ssd_intra": ssd_scan.ssd_intra_kernel,
         "flash_attention": flash_attention.flash_attention_kernel})
+
+    # -- 11. the model zoo's serving path at full width --------------------
+    records = {r["name"]: r for r in kernels}
+    model_launches = model_phase(torch, dev, card, {
+        name: records[name]["paths"][SERVE_MODEL]["ms"]
+        for name in ("flash_attention", "ssd_intra")})
+    for name, n in model_launches.items():
+        records[name]["model_launches"] = n
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -698,8 +724,8 @@ def profile_serve(torch, col, rounds: int = 2,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ev = prof.key_averages()
-    dev = [(getattr(e, "self_device_time_total", 0.0), e.count) for e in ev]
-    busy_s = sum(d for d, _ in dev) / 1e6
+    dev, _ = device_times(ev)
+    busy_s = sum(d for d, _, _ in dev) / 1e6
     host = sorted(((e.self_cpu_time_total, e.count, e.key) for e in ev),
                   reverse=True)[:5]
     top = "; ".join(f"{k[:40]} {us / 1e3:.1f} ms x{n}" for us, n, k in host)
@@ -709,8 +735,8 @@ def profile_serve(torch, col, rounds: int = 2,
         return
     print(f"profile {label}: {rounds} rounds under the profiler: device busy "
           f"{busy_s:.4f} s of {wall:.4f} s wall (idle share "
-          f"{1 - busy_s / wall:.3f}), {sum(n for d, n in dev if d > 0)} "
-          f"device ops; top host self time: {top}")
+          f"{1 - busy_s / wall:.3f}), {sum(n for _, n, _ in dev)} kernels; "
+          f"top host self time: {top}")
 
 
 def scorecard_phase(torch, card: str) -> int:
@@ -1170,20 +1196,16 @@ def profile_phases(torch, specs, walls: dict) -> None:
             roll.add_job(tel)
         torch.cuda.synchronize()
     for phase, prof in (("simulate", sim_prof), ("ingest", ing_prof)):
-        dev = [(getattr(e, "self_device_time_total", 0.0), e.count, e.key)
-               for e in prof.key_averages()]
-        dev = sorted((d for d in dev if d[0] > 0), reverse=True)
+        dev, _ = device_times(prof.key_averages())
         busy_s = sum(d[0] for d in dev) / 1e6
         if not dev:
             print(f"profile {phase}: device time not measured (the profiler "
                   "saw no device activity)")
             continue
-        top = "; ".join(f"{k[:48]} {us / 1e3:.2f} ms x{n}"
-                        for us, n, k in dev[:4])
         print(f"profile {phase}: device busy {busy_s:.4f} s of "
               f"{walls[phase]:.4f} s wall (idle share "
               f"{1 - busy_s / walls[phase]:.3f}), "
-              f"{sum(d[1] for d in dev)} device ops; top: {top}")
+              f"{sum(d[1] for d in dev)} kernels; top: {top_times(dev, 4)}")
 
 
 def event_ms(torch, fn, reps: int) -> float:
@@ -1964,6 +1986,502 @@ def flash_record(torch, cfg, q, k, v, out) -> dict:
             "variant": path, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, **b, "library_ms": lib_ms}
 
+
+# ---------------------------------------------------------------------------
+# 11. the model zoo's serving path at full width
+# ---------------------------------------------------------------------------
+#: the full-width model: its prefill runs both model kernels on their
+#: tensor-core variants (flash hd 112, SSD hd 64 / ds 64), and its 13.6 GB
+#: of bf16 parameters fit one card whole
+SERVE_MODEL = "zamba2-7b"
+PREFILL_S, DECODE_B, DECODE_CTX, DECODE_TOKENS = 4096, 4, 4096, 32
+#: one layer group's card-vs-CPU check (the shared block and layers 0-5)
+#: and the decode-vs-forward check's tokens
+GROUP_S, DECODE_CHECK_T = 512, 64
+#: a bf16 model output on the card may lie this many times as far from
+#: the f32 result as the CPU's plain bf16 route does (`bf16_close`)
+BF16_MODEL_FACTOR = 1.25
+#: decode against forward at full depth: max |logit diff| over the
+#: forward's logit RMS, in bf16 and in f32 (the witness that the bf16 gap
+#: is rounding).  NVIDIA H100 80GB HBM3, 700 W, this script: bf16 read
+#: 0.5624 and 0.5809, f32 8.67e-5, the mutants 2.39 and up in both; each
+#: bf16 limit is ~1.3x its larger reading, the f32 one ~10x its reading
+DECODE_VS_FORWARD_LIMIT = 0.75
+DECODE_VS_FORWARD_F32_LIMIT = 1e-3
+#: the other families at published width, 2 layers: (model, prefill S)
+FAMILY_MODELS = (("llama3.2-3b", 64), ("mamba2-780m", 256),
+                 ("whisper-small", 64))
+
+
+def zero_counts(*kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+        for v in k.launches_by:
+            k.launches_by[v] = 0
+
+
+def model_mutants(torch, hb: int):
+    """Wrong model outputs the checks must reject, each a patch of the
+    kernel API that a model reaches: attention output zeroed, the SSD
+    without its diagonal (intra-chunk) term, and the SSD with each
+    head's decays taken from the next head of the kernel's head block."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops, ssd_scan
+
+    def next_head(x, dt, dacs, b, c):
+        nh = dt.shape[-1]
+        nxt = torch.arange(nh, device=dt.device)
+        nxt = nxt - nxt % hb + (nxt % hb + 1) % hb if hb > 1 else \
+            (nxt + 1) % nh
+        return ssd_scan._launch(x, dt[..., nxt].contiguous(),
+                                dacs[..., nxt].contiguous(), b, c)
+    return {
+        "attention-zeroed": mock.patch.object(
+            ops, "flash", lambda q, k, v, **kw: torch.zeros_like(q)),
+        "ssd-diagonal-dropped": mock.patch.object(
+            ssd_scan, "ssd_intra_kernel",
+            lambda x, *a, **kw: torch.zeros_like(x)),
+        "next-head-decays": mock.patch.object(ssd_scan, "ssd_intra_kernel",
+                                              next_head),
+    }
+
+
+def model_phase(torch, dev, card: str, kernel_ms: dict) -> dict:
+    """Phase 11: zamba2-7b at full width through the port's serving entry
+    points, and three other families at published width.  Returns each
+    model kernel's launches in the full-width prefill forward.
+
+    `kernel_ms` holds phase 10's times of the flash and SSD kernels at
+    zamba2-7b's width, from which the prefill's share in them is worked
+    out beside the profiler's own reading."""
+    from repro_torch.configs import ShapeSpec, get_config, make_inputs
+    from repro_torch.flops.accounting import param_count_analytic, step_flops
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_intra_kernel, wgmma_heads
+    from repro_torch.launch.serve import decode_batch, generate
+    from repro_torch.models import init_params, param_count
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.steps import make_prefill_step
+    t_phase = time.perf_counter()
+    fa, sk = flash_attention_kernel, ssd_intra_kernel
+    cfg = get_config(SERVE_MODEL)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        torch.cuda.synchronize()
+        n_params = param_count(params)
+        param_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(params))
+        print(f"model: {cfg.name} on the card, {n_params:,d} parameters "
+              f"({param_bytes / 1e9:.2f} GB; param_count_analytic "
+              f"{param_count_analytic(cfg):,.0f}), initialised from a "
+              f"seeded generator in {time.perf_counter() - t0:.2f} s")
+        # a sum in f32, not isfinite(): that allocates ~2 bytes a weight
+        check(all(math.isfinite(float(t.sum(dtype=torch.float32)))
+                  for t in tree_leaves(params)), "non-finite parameters")
+
+        # -- prefill -------------------------------------------------------
+        shape = ShapeSpec("prefill", PREFILL_S, 1, "prefill")
+        batch = make_inputs(cfg, shape, device=dev)
+        prefill = make_prefill_step(cfg)
+        zero_counts(fa, sk)
+        torch.cuda.synchronize()
+        tok = prefill(params, batch)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": dict(fa.launches_by),
+                    "ssd_intra": dict(sk.launches_by)}
+        n_groups = len(range(0, cfg.num_layers, cfg.attn_every))
+        print(f"model prefill launches: {launches}")
+        check(launches == {
+            "flash_attention": {"wgmma_bf16": n_groups, "simt": 0},
+            "ssd_intra": {"wgmma_bf16": cfg.num_layers, "simt": 0}},
+            f"prefill launched {launches}, expected {n_groups} flash and "
+            f"{cfg.num_layers} SSD launches, all wgmma_bf16")
+        check(tok.shape == (1,) and 0 <= int(tok) < cfg.vocab_size,
+              f"prefill's next token {tok}")
+        walls = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            prefill(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        ms = 1e3 * sum(walls) / len(walls)
+        flops = step_flops(cfg, shape).total_mxu
+        mfu = flops / (ms / 1e3) / PEAK_OPS_PER_S["bf16"]
+        kernel_share = (n_groups * kernel_ms["flash_attention"]
+                        + cfg.num_layers * kernel_ms["ssd_intra"]) / ms
+        print(f"model prefill: {cfg.name}, S {PREFILL_S}, B 1: "
+              + ", ".join(f"{w * 1e3:.2f}" for w in walls)
+              + f" ms ({ms:.2f} ms mean, {PREFILL_S / ms * 1e3:,.0f} "
+              f"tokens/s); {flops / 1e12:.3f} TFLOP (step_flops, "
+              f"prefill) -> MFU {mfu:.3f} of 989 TFLOP/s bf16 [{card}]; "
+              f"flash x{n_groups} at {kernel_ms['flash_attention']:.4f} ms "
+              f"+ SSD x{cfg.num_layers} at {kernel_ms['ssd_intra']:.4f} ms "
+              f"(phase 10's times) = {kernel_share:.1%} of the step")
+        profile_forward(torch, lambda: prefill(params, batch), ms)
+        del batch
+        marks = {"init and prefill": time.perf_counter()}
+        peaks = {"init": param_bytes,
+                 "prefill": torch.cuda.max_memory_allocated(dev) - base}
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        # -- decode: the serve loop ---------------------------------------
+        warm = decode_batch(cfg, DECODE_B, DECODE_CTX, dev)
+        generate(cfg, params, warm, 2)
+        del warm
+        dbatch = decode_batch(cfg, DECODE_B, DECODE_CTX, dev)
+        cache_bytes = sum(v.numel() * v.element_size()
+                          for k, v in dbatch.items() if k.endswith(
+                              ("_cache", "_state")))
+        zero_counts(fa, sk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(cfg, params, dbatch, DECODE_TOKENS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(toks.shape == (DECODE_B, DECODE_TOKENS)
+              and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              "decoded tokens out of range")
+        check(fa.launches == 0 and sk.launches == 0,
+              "decode launched a prefill kernel")
+        bound_ms = (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+        tok_ms = dt / DECODE_TOKENS * 1e3
+        print(f"decoded {DECODE_TOKENS} tokens x {DECODE_B} seqs in "
+              f"{dt:.2f}s ({DECODE_TOKENS * DECODE_B / dt:.1f} tok/s)")
+        print("sample:", toks[0, :16].cpu().numpy())
+        print(f"model decode: {cfg.name}, B {DECODE_B}, ctx {DECODE_CTX}: "
+              f"{tok_ms:.2f} ms a token, {DECODE_TOKENS * DECODE_B / dt:.1f} "
+              f"tok/s; bound {bound_ms:.2f} ms ({param_bytes / 1e9:.2f} GB "
+              f"of parameters + {cache_bytes / 1e9:.2f} GB of KV and SSM "
+              f"caches over 3.35 TB/s), {bound_ms / tok_ms:.1%} of it "
+              f"[{card}]")
+        profile_decode(torch, lambda: generate(cfg, params, dbatch, 2))
+        del dbatch
+        marks["decode"] = time.perf_counter()
+        peaks["decode"] = torch.cuda.max_memory_allocated(dev) - base
+        print(f"model: peak device memory {max(peaks.values()) / 2**30:.3f} "
+              f"GiB over the {base / 2**30:.3f} held before (parameters "
+              f"{peaks['init'] / 2**30:.3f}, prefill "
+              f"{peaks['prefill'] / 2**30:.3f}, decode "
+              f"{peaks['decode'] / 2**30:.3f}) [{card}]")
+
+        # -- correctness at full width -------------------------------------
+        hb = wgmma_heads(cfg.ssm_head_dim, cfg.ssm_nheads, cfg.ssm_ngroups)
+        group_check(torch, dev, cfg, params, hb)
+        decode_vs_forward(torch, dev, cfg, params, hb)
+        del params
+        torch.cuda.empty_cache()
+        marks["checks at full width"] = time.perf_counter()
+
+        # -- the other families, 2 layers at published width ---------------
+        for model, S in FAMILY_MODELS:
+            family_check(torch, dev, model, S)
+    marks["families"] = time.perf_counter()
+    split, t = [], t_phase
+    for name, mark in marks.items():
+        split.append(f"{name} {mark - t:.2f}")
+        t = mark
+    print(f"model phase 11: {time.perf_counter() - t_phase:.2f} s ("
+          + ", ".join(split) + " s)")
+    return {"flash_attention": launches["flash_attention"]["wgmma_bf16"],
+            "ssd_intra": launches["ssd_intra"]["wgmma_bf16"]}
+
+
+def profile_forward(torch, fn, ms: float) -> None:
+    """torch.profiler over one more prefill: device busy time and idle
+    share against the timed mean, and the flash and SSD kernels' share
+    of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, ops = device_times(prof.key_averages())
+    if not kernels:
+        print("model prefill profile: device time not measured (the "
+              "profiler saw no device activity)")
+        return
+    busy = sum(d[0] for d in kernels) / 1e3
+    flash = sum(d[0] for d in kernels if "flash" in d[2]) / 1e3
+    ssd = sum(d[0] for d in kernels if "ssd" in d[2]) / 1e3
+    print(f"model prefill profile: device busy {busy:.2f} ms of {ms:.2f} ms "
+          f"(idle share {1 - busy / ms:.3f}), {sum(d[1] for d in kernels)} "
+          f"kernels; flash {flash:.2f} ms ({flash / busy:.1%}), SSD "
+          f"intra-chunk {ssd:.2f} ms ({ssd / busy:.1%}) of device time; "
+          f"device time by op: {top_times(ops, 8)}")
+
+
+def profile_decode(torch, fn) -> None:
+    """torch.profiler over 2 decode tokens: host kernel launches and
+    device busy time a token."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
+    n_launch = sum(e.count for e in averages if "LaunchKernel" in e.key)
+    kernels, ops = device_times(averages)
+    busy = sum(d[0] for d in kernels) / 1e3
+    print(f"model decode profile: {n_launch / 2:.0f} host kernel launches "
+          f"a token; device busy {busy / 2:.2f} ms a token of "
+          f"{wall / 2:.2f} ms under the profiler; device time by op over "
+          f"2 tokens: {top_times(ops, 6)}")
+
+
+def device_times(averages) -> tuple[list, list]:
+    """(kernels, ops) of a profile's `key_averages()`, each [(device µs,
+    count, name)] largest first: the device's own events (their sum is
+    its busy time), and the host ops with the device time of the kernels
+    they launched (which counts that time a second time)."""
+    kernels, ops = [], []
+    for e in averages:
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0:
+            on_device = getattr(e.device_type, "name", "") == "CUDA"
+            (kernels if on_device else ops).append((us, e.count, e.key))
+    return sorted(kernels, reverse=True), sorted(ops, reverse=True)
+
+
+def top_times(rows: list, n: int) -> str:
+    return "; ".join(f"{k[:40]} {us / 1e3:.2f} ms x{c}"
+                     for us, c, k in rows[:n])
+
+
+def group_check(torch, dev, cfg, params, hb: int) -> None:
+    """Correctness (a): the shared block and layers 0-5 at full width,
+    S 512, B 1, on the card through the kernels against the CPU through
+    the plain versions on the same parameters: in f32 (the card's bf16
+    parameters upcast; the SIMT kernels) to `close_rows`' limit, in bf16
+    (the wgmma kernels) with `bf16_close`.  Both limits must reject the
+    three `model_mutants`, run on the card."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeSpec, make_inputs
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_intra_kernel
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.ssm_models import (_mamba_stack,
+                                               _shared_attn_apply, _slice)
+    t0 = time.perf_counter()
+    s, e = 0, cfg.attn_every
+    sub16 = {"shared_attn": params["shared_attn"],
+             "layers": _slice(params["layers"], s, e)}
+    sub32 = tree_map(lambda t: t.float(), sub16)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    toks = make_inputs(cfg, ShapeSpec("g", GROUP_S, 1, "prefill"), seed=1,
+                       device=dev)["tokens"]
+    x16 = params["embed"][toks]
+
+    def group(c, p, x):
+        pos = torch.arange(x.shape[1], device=x.device)
+        x = _shared_attn_apply(c, p["shared_attn"], x, pos)
+        return _mamba_stack(c, p["layers"], x)
+
+    def on_card(c, p, x):
+        """The group on the card and its mutants, each on the CPU."""
+        zero_counts(flash_attention_kernel, ssd_intra_kernel)
+        out = group(c, p, x).cpu()
+        variant = "wgmma_bf16" if c.dtype == "bfloat16" else "simt"
+        check((flash_attention_kernel.launches_by[variant],
+               ssd_intra_kernel.launches_by[variant]) == (1, e),
+              f"the group did not run its {variant} kernels")
+        mutants = {}
+        for name, patch in model_mutants(torch, hb).items():
+            with patch:
+                mutants[name] = group(c, p, x).cpu()
+        return out, mutants
+
+    name = f"{cfg.name} shared block + layers {s}-{e - 1}, S {GROUP_S}"
+    cpu32 = group(cfg32, tree_map(lambda t: t.cpu(), sub32), x16.float().cpu())
+    card32, mutants32 = on_card(cfg32, sub32, x16.float())
+    close_rows(torch, f"{name}, f32, card vs CPU", card32, cpu32, mutants32)
+    cpu16 = group(cfg, tree_map(lambda t: t.cpu(), sub16), x16.cpu())
+    card16, mutants16 = on_card(cfg, sub16, x16)
+    bf16_close(torch, f"{name}, bf16", card16, cpu16, cpu32, mutants16)
+    print(f"model group check: {time.perf_counter() - t0:.2f} s")
+
+
+def rel_l2(torch, got, want) -> float:
+    return float((got.double() - want.double()).norm()
+                 / want.double().norm())
+
+
+def bf16_close(torch, name: str, card, plain, truth, mutants: dict) -> float:
+    """A bf16 model output of several layers: each layer's bf16 rounding
+    puts any bf16 route a few % (relative L2) from the f32 result, past
+    `close_rows`' limit on whichever device it runs, so the card's
+    output is held to lie no further from the CPU's f32 output `truth`
+    than BF16_MODEL_FACTOR times the CPU's plain bf16 output does; the
+    limit must reject each of `mutants`.  Returns the card's distance."""
+    kernel, ref = rel_l2(torch, card, truth), rel_l2(torch, plain, truth)
+    limit = BF16_MODEL_FACTOR * ref
+    wrong = {k: rel_l2(torch, v, truth) for k, v in mutants.items()}
+    print(f"{name}: relative L2 from the CPU's f32 output: card "
+          f"{kernel:.4e}, CPU's plain bf16 {ref:.4e}, card vs CPU "
+          f"{rel_l2(torch, card, plain):.4e}; limit {limit:.4e}; mutants "
+          + ", ".join(f"{k} {v:.4e}" for k, v in wrong.items()))
+    check(math.isfinite(kernel) and kernel <= limit,
+          f"{name}: the card's output is {kernel:.4e} from the f32 result, "
+          f"past {limit:.4e}")
+    for what, v in wrong.items():
+        check(v > limit, f"{name}: the limit passes a {what} output")
+    return kernel
+
+
+def decode_vs_forward(torch, dev, cfg, params, hb: int) -> None:
+    """Correctness (b): 64 tokens decoded one by one through the plain
+    decode path against one forward over the same 64 tokens through both
+    kernels (Q = 64, S = 64), all 81 layers, in bf16 (the wgmma kernels)
+    and, as a witness that the bf16 gap is rounding and not a mismatch of
+    the two paths, in f32 on the same parameters upcast (the SIMT
+    kernels).  Prints the largest logit difference over the forward's
+    logit RMS and the argmax agreement, and holds each to its limit,
+    past which the three mutants must land."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeSpec, make_inputs
+    from repro_torch.models.common import tree_map
+    t0 = time.perf_counter()
+    toks = make_inputs(cfg, ShapeSpec("d", DECODE_CHECK_T, 1, "prefill"),
+                       seed=2, device=dev)["tokens"]
+    one_dtype_decode_vs_forward(torch, dev, cfg, params, hb, toks,
+                                DECODE_VS_FORWARD_LIMIT)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    one_dtype_decode_vs_forward(torch, dev, cfg32, params32, hb, toks,
+                                DECODE_VS_FORWARD_F32_LIMIT)
+    del params32
+    torch.cuda.empty_cache()
+    print(f"model decode vs forward: {time.perf_counter() - t0:.2f} s")
+
+
+def one_dtype_decode_vs_forward(torch, dev, cfg, params, hb: int, toks,
+                                limit: float) -> None:
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_intra_kernel
+    from repro_torch.launch.serve import decode_batch
+    from repro_torch.models import decode_step, forward
+    T = toks.shape[1]
+    batch = decode_batch(cfg, 1, T, dev)
+    dec = []
+    for t in range(T):
+        batch["tokens"] = toks[:, t:t + 1]
+        batch["cache_index"] = torch.full((), t, dtype=torch.int32,
+                                          device=dev)
+        logits, _ = decode_step(cfg, params, batch)
+        dec.append(logits[:, 0].float())
+    dec = torch.stack(dec, 1)
+    del batch
+    zero_counts(flash_attention_kernel, ssd_intra_kernel)
+    full = forward(cfg, params, {"tokens": toks}).float()
+    torch.cuda.synchronize()
+    n_groups = len(range(0, cfg.num_layers, cfg.attn_every))
+    variant = "wgmma_bf16" if cfg.dtype == "bfloat16" else "simt"
+    check((flash_attention_kernel.launches_by[variant],
+           ssd_intra_kernel.launches_by[variant])
+          == (n_groups, cfg.num_layers),
+          f"the {T}-token {cfg.dtype} forward did not run its {variant} "
+          f"kernels")
+    rms = float(full.pow(2).mean().sqrt())
+
+    def err(t):
+        return float((t - dec).abs().max()) / rms
+    e = err(full)
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    wrong = {}
+    for name, patch in model_mutants(torch, hb).items():
+        with patch:
+            wrong[name] = err(forward(cfg, params, {"tokens": toks}).float())
+    print(f"model decode vs forward: {cfg.name}, {cfg.dtype}, {T} tokens, "
+          f"all {cfg.num_layers} layers: max |diff| {e * rms:.4e} = "
+          f"{e:.4e} of the logit RMS {rms:.4f}; argmax agrees at "
+          f"{agree:.1%} of positions; mutants "
+          + ", ".join(f"{k} {v:.4f}" for k, v in wrong.items())
+          + f"; limit {limit}")
+    check(math.isfinite(e) and e <= limit,
+          f"{cfg.dtype} decode differs from forward by {e:.4e} of the logit "
+          f"RMS, past {limit}")
+    for name, v in wrong.items():
+        check(v > limit, f"the {cfg.dtype} decode-vs-forward limit passes a "
+              f"{name} forward")
+
+
+def family_check(torch, dev, model: str, S: int) -> None:
+    """A family at published width and 2 layers (2 encoder layers for
+    whisper): forward and 4 decode steps on the card against the CPU's
+    plain route on the same parameters and inputs (`bf16_close`, the
+    CPU's f32 run on the same values as the truth, a zeroed output as
+    the mutant), with the kernels' launches counted."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeSpec, get_config, make_inputs
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_intra_kernel
+    from repro_torch.models import decode_step, forward, init_params
+    from repro_torch.models.common import tree_map
+    t0 = time.perf_counter()
+    fa, sk = flash_attention_kernel, ssd_intra_kernel
+    cfg = get_config(model)
+    cfg = dataclasses.replace(cfg, num_layers=2,
+                              encoder_layers=min(cfg.encoder_layers, 2))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(3),
+                         device=dev)
+    runs = {"card": (cfg, params),
+            "cpu": (cfg, tree_map(lambda t: t.cpu(), params)),
+            "cpu f32": (cfg32, tree_map(lambda t: t.cpu().float(), params))}
+
+    def inputs(batch, run):
+        out = {k: v.to("cpu", copy=True) if run != "card" else v
+               for k, v in batch.items()}
+        if run == "cpu f32":
+            out = {k: v.float() if v.dtype == torch.bfloat16 else v
+                   for k, v in out.items()}
+        return out
+
+    batch = make_inputs(cfg, ShapeSpec("p", S, 1, "prefill"), device=dev)
+    zero_counts(fa, sk)
+    outs = {run: forward(c, p, inputs(batch, run))
+            for run, (c, p) in runs.items()}
+    fwd = (dict(fa.launches_by), dict(sk.launches_by))
+    name = f"{model} (2 layers)"
+    bf16_close(torch, f"{name} forward, S {S}", outs["card"].cpu(),
+               outs["cpu"], outs["cpu f32"],
+               {"zeroed": torch.zeros_like(outs["cpu"])})
+    dbatch = make_inputs(cfg, ShapeSpec("d", 64, 1, "decode"), device=dev)
+    batches = {run: inputs(dbatch, run) for run in runs}
+    zero_counts(fa, sk)
+    for i in range(4):
+        outs = {run: decode_step(c, p, batches[run])[0]
+                for run, (c, p) in runs.items()}
+        bf16_close(torch, f"{name} decode step {i}", outs["card"].cpu(),
+                   outs["cpu"], outs["cpu f32"],
+                   {"zeroed": torch.zeros_like(outs["cpu"])})
+        for b in batches.values():
+            b["cache_index"] = b["cache_index"] + 1
+    torch.cuda.synchronize()
+    dec = (dict(fa.launches_by), dict(sk.launches_by))
+    want_fwd = {"llama3.2-3b": (2, 0), "mamba2-780m": (0, 2),
+                "whisper-small": (6, 0)}[model]
+    want_dec = (8, 0) if model == "whisper-small" else (0, 0)
+    print(f"model family {model}: forward launches flash {fwd[0]}, SSD "
+          f"{fwd[1]}; 4 decode steps flash {dec[0]}, SSD {dec[1]}; "
+          f"{time.perf_counter() - t0:.2f} s")
+    for (f, s), (wf, ws) in ((fwd, want_fwd), (dec, want_dec)):
+        check(f == {"wgmma_bf16": wf, "simt": 0}
+              and s == {"wgmma_bf16": ws, "simt": 0},
+              f"{model}: launches {f}, {s}, expected {wf} flash and {ws} "
+              "SSD on wgmma_bf16")
 
 if __name__ == "__main__":
     main()

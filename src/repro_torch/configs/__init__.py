@@ -1,3 +1,4 @@
 from repro_torch.configs.base import (  # noqa: F401
-    SHAPES, ModelConfig, ShapeSpec, get_config, list_configs, register,
+    SHAPES, ModelConfig, ShapeSpec, cache_specs, get_config, input_specs,
+    list_configs, make_inputs, register,
 )

@@ -2,12 +2,19 @@
 
 Every assigned architecture is a `ModelConfig` (exact published numbers) plus a
 `smoke()` reduction of the same family for CPU tests.  Input shapes are the four
-assigned (seq_len, global_batch, kind) cells.  Data only: the fleet path
-reads these to derive step FLOPs and job profiles.
+assigned (seq_len, global_batch, kind) cells; `input_specs()` and
+`cache_specs()` give meta-device stand-ins (no allocation) and
+`make_inputs()` the seeded inputs themselves.  The fleet path reads the
+configs to derive step FLOPs and job profiles.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -182,3 +189,93 @@ def _load_all() -> None:
         granite_3_2b, llama3_2_3b, whisper_small, phi_3_vision_4_2b,
         mamba2_780m, zamba2_7b,
     )
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta-device stand-ins, no allocation)
+# ---------------------------------------------------------------------------
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """Meta tensors standing in for every model input of one (arch, shape)
+    cell, in the reference's order, shapes and dtypes.
+
+    train/prefill : tokens + labels (+ frontend stubs)
+    decode        : one new token per sequence + the KV/SSM caches at seq_len
+    """
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    f = getattr(torch, cfg.dtype)
+
+    if shape.kind in ("train", "prefill"):
+        # VLM: image patches occupy the first num_image_tokens positions of the
+        # assigned seq_len, so total sequence length stays exactly S.
+        S_txt = S - cfg.num_image_tokens if cfg.family == "vlm" else S
+        specs = {"tokens": _meta((B, S_txt), i32)}
+        if shape.kind == "train":
+            specs["labels"] = _meta((B, S), i32)
+        if cfg.family == "vlm":
+            # modality frontend is a STUB: precomputed patch embeddings
+            specs["patch_embeds"] = _meta((B, cfg.num_image_tokens,
+                                           cfg.d_model), f)
+        if cfg.family == "encdec":
+            # conv frontend stub: precomputed mel-frame embeddings
+            specs["frame_embeds"] = _meta((B, cfg.encoder_seq, cfg.d_model), f)
+        return specs
+
+    # ---- decode: one new token against caches of length S ----
+    specs = {"tokens": _meta((B, 1), i32), "cache_index": _meta((), i32)}
+    specs.update(cache_specs(cfg, B, S, f))
+    if cfg.family == "encdec":
+        specs["encoder_out"] = _meta((B, cfg.encoder_seq, cfg.d_model), f)
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, B: int, S: int, dt) -> dict:
+    """Decode-cache meta tensors (stacked over layers); `dt` is the KV and
+    conv caches' dtype, the SSM state is always float32."""
+    L = cfg.num_layers
+    specs: dict = {}
+    if cfg.family in ("dense", "moe", "mla_moe", "vlm", "encdec", "hybrid"):
+        if cfg.family == "mla_moe":
+            # MLA compressed cache: latent c_kv + decoupled rope key
+            specs["kv_cache"] = _meta(
+                (L, B, S, cfg.kv_lora_rank + cfg.qk_rope_dim), dt)
+        else:
+            nl = (len(range(0, L, cfg.attn_every)) if cfg.family == "hybrid"
+                  else L)
+            for name in ("k_cache", "v_cache"):
+                specs[name] = _meta((nl, B, S, cfg.num_kv_heads,
+                                     cfg.head_dim), dt)
+    if cfg.family in ("ssm", "hybrid"):
+        specs["ssm_state"] = _meta((L, B, cfg.ssm_nheads, cfg.ssm_head_dim,
+                                    cfg.ssm_state), torch.float32)
+        specs["conv_state"] = _meta(
+            (L, B, cfg.conv_width - 1,
+             cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state), dt)
+    return specs
+
+
+def make_inputs(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0,
+                device=None) -> dict:
+    """Materialized inputs on `device` (the card unless "cpu" is named):
+    the reference's NumPy draws in the reference's order, so both packages
+    get the same values bitwise.  Floats go f64 -> f32 -> the model dtype,
+    as the reference's cast does with 64-bit mode off."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, s in input_specs(cfg, shape).items():
+        if not s.dtype.is_floating_point:
+            if k == "cache_index":
+                a = np.asarray(min(shape.seq_len - 1, 7))
+            else:
+                a = rng.integers(0, cfg.vocab_size, s.shape)
+            t = torch.from_numpy(a.astype(np.int32))
+        else:
+            a = rng.standard_normal(s.shape) * 0.02
+            t = torch.from_numpy(a.astype(np.float32)).to(s.dtype)
+        out[k] = t.to(device)
+    return out
