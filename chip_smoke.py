@@ -131,12 +131,34 @@
    term and an SSD with the next head's decays; then llama3.2-3b,
    mamba2-780m and whisper-small at published width and 2 layers,
    forward and 4 decode steps against the CPU with exact launch counts.
+12. Trains zamba2-7b at full width on phase 11's parameters through the
+   port's `Trainer` (S = 4,096, B = 1, AdamW with a bf16 first moment
+   and a factored second moment): one warm-up step, 3 timed, one under
+   the profiler, each of which must launch exactly 28 flash and 162 SSD
+   kernels on their tensor-core variants (14 and 81 in the forward, the
+   same again in remat's recompute; the autograd Functions' backwards
+   launch none).  Prints step s, tokens/s, MFU from `train_step_flops`
+   without and with the recompute, the loss of each step, peak memory,
+   the idle share and the top ops.  Correctness: (a) one layer group's
+   gradients (the shared block and layers 0-5, S = 512) for every leaf in
+   f32 through the kernels against autograd through the plain versions
+   on the card, each leaf within `close_rows`' limit, which must reject
+   a flash backward with dq = 0, an SSD backward without its d dacs term
+   and one with the next head's decays, and the same in bf16, no further
+   from the f32 gradients than 1.25x the CPU's plain bf16 route; (b)
+   after the full-width steps every gradient (by layer) finite and
+   non-zero, every matrix and f32 leaf moved, every loss finite; (c)
+   llama3.2-3b, mamba2-780m and whisper-small at published width and 2
+   layers, in f32: a train step on the card against the CPU with exact
+   launch counts, then a crash after a checkpoint, a restore and a
+   resume whose last loss equals an uninterrupted run's.
 
 Prints the phase times and peak device memory, then one JSON line with
 every kernel's record (the histogram kernel's also carries
 `serve_launches`, `scorecard_launches`, `table3_launches` and
 `live_launches`, its counts over phases 5-8; the flash and SSD kernels'
-carry `model_launches`, their launches in phase 11's prefill) and, last,
+carry `model_launches`, their launches in phase 11's prefill, and
+`train_launches`, their launches a phase 12 train step) and, last,
 `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result,
 when a phase fails, when CUDA is absent, or when run outside a checkout
 of the repository.
@@ -436,11 +458,17 @@ def main() -> None:
 
     # -- 11. the model zoo's serving path at full width --------------------
     records = {r["name"]: r for r in kernels}
-    model_launches = model_phase(torch, dev, card, {
+    model_launches, params = model_phase(torch, dev, card, {
         name: records[name]["paths"][SERVE_MODEL]["ms"]
         for name in ("flash_attention", "ssd_intra")})
     for name, n in model_launches.items():
         records[name]["model_launches"] = n
+
+    # -- 12. training at full width ------------------------------------------
+    train_launches = train_phase(torch, dev, card, params)
+    del params
+    for name, n in train_launches.items():
+        records[name]["train_launches"] = n
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2050,7 +2078,8 @@ def model_mutants(torch, hb: int):
 def model_phase(torch, dev, card: str, kernel_ms: dict) -> dict:
     """Phase 11: zamba2-7b at full width through the port's serving entry
     points, and three other families at published width.  Returns each
-    model kernel's launches in the full-width prefill forward.
+    model kernel's launches in the full-width prefill forward, and the
+    full-width parameters (phase 12 trains them).
 
     `kernel_ms` holds phase 10's times of the flash and SSD kernels at
     zamba2-7b's width, from which the prefill's share in them is worked
@@ -2070,10 +2099,11 @@ def model_phase(torch, dev, card: str, kernel_ms: dict) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
-    with torch.inference_mode():
-        t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    with torch.no_grad():   # plain tensors: phase 12 trains them in place
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                              device=dev)
+    with torch.inference_mode():
         torch.cuda.synchronize()
         n_params = param_count(params)
         param_bytes = sum(t.numel() * t.element_size()
@@ -2175,7 +2205,6 @@ def model_phase(torch, dev, card: str, kernel_ms: dict) -> dict:
         hb = wgmma_heads(cfg.ssm_head_dim, cfg.ssm_nheads, cfg.ssm_ngroups)
         group_check(torch, dev, cfg, params, hb)
         decode_vs_forward(torch, dev, cfg, params, hb)
-        del params
         torch.cuda.empty_cache()
         marks["checks at full width"] = time.perf_counter()
 
@@ -2190,7 +2219,7 @@ def model_phase(torch, dev, card: str, kernel_ms: dict) -> dict:
     print(f"model phase 11: {time.perf_counter() - t_phase:.2f} s ("
           + ", ".join(split) + " s)")
     return {"flash_attention": launches["flash_attention"]["wgmma_bf16"],
-            "ssd_intra": launches["ssd_intra"]["wgmma_bf16"]}
+            "ssd_intra": launches["ssd_intra"]["wgmma_bf16"]}, params
 
 
 def profile_forward(torch, fn, ms: float) -> None:
@@ -2482,6 +2511,512 @@ def family_check(torch, dev, model: str, S: int) -> None:
               and s == {"wgmma_bf16": ws, "simt": 0},
               f"{model}: launches {f}, {s}, expected {wf} flash and {ws} "
               "SSD on wgmma_bf16")
+
+
+# ---------------------------------------------------------------------------
+# 12. training at full width
+# ---------------------------------------------------------------------------
+#: zamba2-7b at full width, one sequence of 4,096 tokens a step: one
+#: warm-up step, TRAIN_TIMED timed ones, one under the profiler
+TRAIN_S, TRAIN_TIMED = 4096, 3
+#: the reference's own large-model optimizer options (bf16 first moment,
+#: factored second moment): with f32 moments the state alone (parameters,
+#: gradients, m and v) is 81.5 GB
+TRAIN_OPT = {"moment_dtype": "bfloat16", "factored_v": True,
+             "warmup_steps": 1}
+#: the other families at published width, 2 layers, f32: (model, S)
+TRAIN_FAMILY_MODELS = FAMILY_MODELS
+
+
+def grad_mutants(torch):
+    """Wrong backwards the gradient checks must reject, each a patch of
+    `kernels.grad`: flash with dq set to 0, the SSD without its d dacs
+    term (the path to A_log and dt through the decays), and the SSD
+    backward with each head's decays taken from the next head."""
+    from unittest import mock
+
+    from repro_torch.kernels import grad
+    flash_bwd, ssd_bwd = grad.flash_bwd, grad.ssd_intra_bwd
+
+    def dq_zeroed(*a, **kw):
+        dq, dk, dv = flash_bwd(*a, **kw)
+        return torch.zeros_like(dq), dk, dv
+
+    def no_ddacs(*a):
+        dx, ddt, ddacs, db, dc = ssd_bwd(*a)
+        return dx, ddt, torch.zeros_like(ddacs), db, dc
+
+    def next_head(x, dt, dacs, b, c, dy):
+        nh = dt.shape[-1]
+        nxt = (torch.arange(nh, device=dt.device) + 1) % nh
+        return ssd_bwd(x, dt, dacs[..., nxt], b, c, dy)
+    return {"dq-zeroed": mock.patch.object(grad, "flash_bwd", dq_zeroed),
+            "d-dacs-dropped": mock.patch.object(grad, "ssd_intra_bwd",
+                                                no_ddacs),
+            "next-head-decays": mock.patch.object(grad, "ssd_intra_bwd",
+                                                  next_head)}
+
+
+def plain_route(torch):
+    """Autograd through the kernels' plain versions, on any device: the
+    kernel API's entry points patched to call them."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops, ref
+    return (mock.patch.object(ops, "flash", ref.ref_attention),
+            mock.patch.object(ops, "ssd_intra", ref.ref_ssd_intra))
+
+
+def leaf_paths(tree, path: str = "") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(leaf_paths(v, f"{path}[{k!r}]"))
+        return out
+    return {path: tree}
+
+
+def grads_close(torch, name: str, got: dict, want: dict,
+                mutants: dict) -> float:
+    """`close_rows`' limit (2^-6·|w| + 2^-5 of the row's RMS) on every
+    leaf of a gradient tree: fails unless each leaf of `got` is finite
+    and within it of `want`'s, and unless every tree of `mutants` puts
+    some element of some leaf past it.  Returns the largest |diff| over
+    the row RMS."""
+    got, want = leaf_paths(got), leaf_paths(want)
+    check(set(got) == set(want), f"{name}: leaves differ")
+    worst, rejected = 0.0, {k: 0 for k in mutants}
+    mutants = {k: leaf_paths(v) for k, v in mutants.items()}
+    for path, w in want.items():
+        w = w.double().cpu()
+        rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+        limit = BF16_RTOL * w.abs() + BF16_ROW_ATOL * rms
+        g = got[path].double().cpu()
+        check(bool(torch.isfinite(g).all()), f"{name} {path}: non-finite")
+        n_bad = int(((g - w).abs() > limit).sum())
+        check(n_bad == 0, f"{name} {path}: {n_bad} elements beyond the "
+              f"limit (max |diff| {float((g - w).abs().max()):.3e})")
+        worst = max(worst, float(((g - w).abs() / rms.clamp_min(
+            1e-30)).max()))
+        for k, m in mutants.items():
+            rejected[k] += int(((m[path].double().cpu() - w).abs()
+                                > limit).sum())
+    print(f"{name}: {len(want)} leaves, max |diff| {worst:.3e} of the row "
+          f"RMS; the limit rejects, of the elements: " + ", ".join(
+              f"{k} {n:,d}" for k, n in rejected.items()))
+    for k, n in rejected.items():
+        check(n > 0, f"{name}: the limit passes the {k} gradients")
+    return worst
+
+
+def grads_rel(torch, got: dict, want: dict) -> dict:
+    """Relative L2 distance of each leaf of `got` from `want`'s."""
+    got, want = leaf_paths(got), leaf_paths(want)
+    return {p: rel_l2(torch, got[p].cpu(), want[p].cpu()) for p in want}
+
+
+def rms_over_leaves(d: dict) -> float:
+    return math.sqrt(sum(v * v for v in d.values()) / len(d))
+
+
+def group_grads(torch, cfg, sub, x, cot):
+    """Gradients of sum(cot ∘ group(x)) for every leaf of `sub` (the
+    shared block and a slice of layers), taken as the train step takes
+    them: per-layer leaves, each layer body under remat."""
+    from repro_torch.models.common import remat, tree_map
+    from repro_torch.models.ssm_models import _mamba_stack, _shared_attn_apply
+    from repro_torch.train.steps import grad_leaves
+    grads = tree_map(torch.zeros_like, sub)
+    model, leaves = grad_leaves(sub, grads)
+    pos = torch.arange(x.shape[1], device=x.device)
+    y = remat(cfg, _shared_attn_apply, cfg, model["shared_attn"], x, pos)
+    y = _mamba_stack(cfg, model["layers"], y)
+    (y.float() * cot).sum().backward(inputs=leaves)
+    return grads
+
+
+def train_group_check(torch, dev, cfg, params) -> None:
+    """Correctness (a) of training at full width: the gradients of one
+    layer group (the shared block and layers 0-5, S 512) for every leaf.
+    f32 on the card: through the Functions (the SIMT kernels, run again
+    in the recompute) against autograd through the plain versions on the
+    card, every leaf within `close_rows`' limit, which must reject the
+    three `grad_mutants`.  bf16: the wgmma kernels' gradients no further from the f32 ones (RMS over leaves of each
+    leaf's relative L2 distance) than BF16_MODEL_FACTOR times the CPU's
+    plain bf16 route's, a limit the mutants must pass."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeSpec, make_inputs
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_intra_kernel
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.ssm_models import _slice
+    t0 = time.perf_counter()
+    fa, sk = flash_attention_kernel, ssd_intra_kernel
+    e = cfg.attn_every
+    sub16 = {"shared_attn": params["shared_attn"],
+             "layers": _slice(params["layers"], 0, e)}
+    sub32 = tree_map(lambda t: t.float(), sub16)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    toks = make_inputs(cfg, ShapeSpec("g", GROUP_S, 1, "prefill"), seed=4,
+                       device=dev)["tokens"]
+    x16 = params["embed"][toks].detach()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cot = torch.randn(x16.shape, generator=gen, device=dev) \
+        / math.sqrt(x16.numel())
+    name = f"{cfg.name} gradients, shared block + layers 0-{e - 1}, " \
+        f"S {GROUP_S}"
+
+    def kernel_route(c, p, x, variant):
+        zero_counts(fa, sk)
+        out = group_grads(torch, c, p, x, cot)
+        torch.cuda.synchronize()
+        got = (fa.launches_by[variant], sk.launches_by[variant])
+        check(got == (2, 2 * e) and fa.launches == 2
+              and sk.launches == 2 * e,
+              f"{name}, {c.dtype}: launches {fa.launches_by}, "
+              f"{sk.launches_by}, expected 2 flash and {2 * e} SSD on "
+              f"{variant} (forward and recompute)")
+        mutants = {}
+        for k, patch in grad_mutants(torch).items():
+            with patch:
+                mutants[k] = group_grads(torch, c, p, x, cot)
+        return out, mutants
+
+    marks = [time.perf_counter()]
+    card32, mut32 = kernel_route(cfg32, sub32, x16.float(), "simt")
+    a, b = plain_route(torch)
+    with a, b:
+        zero_counts(fa, sk)
+        plain32 = group_grads(torch, cfg32, sub32, x16.float(), cot)
+        check(fa.launches == 0 and sk.launches == 0,
+              "the plain route launched a kernel")
+    grads_close(torch, f"{name}, f32, kernels vs plain on the card",
+                card32, plain32, mut32)
+    del mut32, card32
+
+    card16, mut16 = kernel_route(cfg, sub16, x16, "wgmma_bf16")
+    marks.append(time.perf_counter())
+    with a, b:
+        cpu16 = group_grads(torch, cfg, tree_map(lambda t: t.cpu(), sub16),
+                            x16.cpu(), cot.cpu())
+    marks.append(time.perf_counter())
+    truth = tree_map(lambda t: t.cpu(), plain32)
+    kern, ref = grads_rel(torch, card16, truth), grads_rel(torch, cpu16, truth)
+    limit = BF16_MODEL_FACTOR * rms_over_leaves(ref)
+    wrong = {k: rms_over_leaves(grads_rel(torch, v, truth))
+             for k, v in mut16.items()}
+    ratio = max(kern, key=lambda p: kern[p] / max(ref[p], 1e-30))
+    print(f"{name}, bf16: RMS over {len(kern)} leaves of the relative L2 "
+          f"from the f32 gradients: card {rms_over_leaves(kern):.4e}, CPU's "
+          f"plain bf16 {rms_over_leaves(ref):.4e}; limit {limit:.4e}; "
+          f"largest leaf ratio card/CPU {kern[ratio] / ref[ratio]:.3f} "
+          f"({ratio}: {kern[ratio]:.4e} vs {ref[ratio]:.4e}); mutants "
+          + ", ".join(f"{k} {v:.4e}" for k, v in wrong.items()))
+    check(rms_over_leaves(kern) <= limit,
+          f"{name}, bf16: the card's gradients lie "
+          f"{rms_over_leaves(kern):.4e} from the f32 ones, past {limit:.4e}")
+    for k, v in wrong.items():
+        check(v > limit, f"{name}, bf16: the limit passes the {k} gradients")
+    print(f"train group check: {time.perf_counter() - t0:.2f} s (the "
+          f"card's 10 backwards {marks[1] - marks[0]:.2f} s, the CPU's bf16 "
+          f"one {marks[2] - marks[1]:.2f} s)")
+
+
+def layer_slices(tree) -> dict:
+    """{(path, layer): tensor} over every leaf, a stacked leaf (under
+    `train.steps.STACKED`) by layer."""
+    from repro_torch.train.steps import STACKED
+    out = {}
+    for path, t in leaf_paths(tree).items():
+        stacked = any(f"[{k!r}]" in path for k in STACKED)
+        for i, s in enumerate(t.unbind(0) if stacked else (t,)):
+            out[(path, i)] = s
+    return out
+
+
+def layer_sums(torch, tree) -> dict:
+    """{(path, layer): f64 sum}: a fingerprint that costs no copy."""
+    return {k: float(torch.sum(s, dtype=torch.float64))
+            for k, s in layer_slices(tree).items()}
+
+
+def train_phase(torch, dev, card: str, params) -> dict:
+    """Phase 12: zamba2-7b at full width through the port's `Trainer`
+    (one warm-up step, 3 timed, one under the profiler), on phase 11's
+    parameters, with its gradient checks (a) and (b); then (c), three
+    families at published width, 2 layers, each an f32 train step
+    against the CPU and a crash restart through checkpoints.  Returns
+    each model kernel's launches a full-width train step."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.flops.accounting import train_step_flops
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_intra_kernel
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    import gc
+    t_phase = time.perf_counter()
+    fa, sk = flash_attention_kernel, ssd_intra_kernel
+    cfg = get_config(SERVE_MODEL)
+    train_group_check(torch, dev, cfg, params)
+    marks = {"group gradients": time.perf_counter()}
+
+    # -- the full-width train steps ---------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    shape = ShapeSpec("train", TRAIN_S, 1, "train")
+    before = layer_sums(torch, params)
+    n_steps = 1 + TRAIN_TIMED + 1
+    counts, prof = [], profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+    # what can make one step slower than the others: the caching
+    # allocator's retries (a failed cudaMalloc frees every cached block,
+    # synchronizing) and cudaMalloc/cudaFree calls, and Python's cyclic GC
+    alloc_keys = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+    gc_s, gc_t0, host = [0.0, 0], [0.0], []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - gc_t0[0]
+            gc_s[1] += info["generation"] == 2
+
+    def snapshot():
+        st = torch.cuda.memory_stats(dev)
+        return ([st.get(k, 0) for k in alloc_keys]
+                + [st.get("reserved_bytes.all.current", 0), *gc_s])
+
+    def hook(step):
+        counts.append((dict(fa.launches_by), dict(sk.launches_by)))
+        host.append(snapshot())
+        if step == n_steps - 1:
+            torch.cuda.synchronize()
+            prof.__enter__()
+    handed = [params]
+    with tempfile.TemporaryDirectory() as ck:
+        trainer = Trainer(
+            cfg, shape, adamw.OptConfig(**TRAIN_OPT),
+            TrainConfig(total_steps=n_steps, ckpt_every=0, ckpt_dir=ck,
+                        log_every=1, monitor=False, device=str(dev)),
+            fault_hook=hook, params_fn=handed.pop)
+        zero_counts(fa, sk)
+        gc.callbacks.append(on_gc)
+        try:
+            out = trainer.run()
+        finally:
+            gc.callbacks.remove(on_gc)
+        torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+    counts.append((dict(fa.launches_by), dict(sk.launches_by)))
+    host.append(snapshot())
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_groups = len(range(0, cfg.num_layers, cfg.attn_every))
+    want = (2 * n_groups, 2 * cfg.num_layers)
+    per_step = []
+    for i in range(n_steps):
+        (f0, s0), (f1, s1) = counts[i], counts[i + 1]
+        step = ({k: f1[k] - f0[k] for k in f1}, {k: s1[k] - s0[k] for k in s1})
+        check(step == ({"wgmma_bf16": want[0], "simt": 0},
+                       {"wgmma_bf16": want[1], "simt": 0}),
+              f"train step {i}: launches {step}, expected {want[0]} flash "
+              f"and {want[1]} SSD on wgmma_bf16 (forward and recompute)")
+        per_step.append(step)
+    losses = [m["loss"] for m in out["metrics"]]
+    check(out["final_step"] == n_steps and len(losses) == n_steps
+          and all(math.isfinite(v) for v in losses),
+          f"the trainer ended at step {out['final_step']} with losses "
+          f"{losses}")
+    times = [t.step_time_s for t in trainer.history]
+    s = sum(times[1:1 + TRAIN_TIMED]) / TRAIN_TIMED
+    model_fl = train_step_flops(cfg, shape, remat=False).total_mxu
+    exec_fl = train_step_flops(cfg, shape, remat=True,
+                               executed=True).total_mxu
+    peak_rate = PEAK_OPS_PER_S["bf16"]
+    print(f"train: {cfg.name} at full width, S {TRAIN_S}, B 1, bf16, "
+          f"AdamW {TRAIN_OPT}: steps "
+          + ", ".join(f"{t:.3f}" for t in times)
+          + f" s (warm-up, {TRAIN_TIMED} timed, profiled); {s:.3f} s a "
+          f"step, {TRAIN_S / s:,.0f} tokens/s; {model_fl / 1e12:.2f} TFLOP "
+          f"a step (train_step_flops, remat=False) -> MFU "
+          f"{model_fl / s / peak_rate:.3f} of 989 TFLOP/s bf16; executed "
+          f"with remat's recompute {exec_fl / 1e12:.2f} TFLOP "
+          f"({exec_fl / model_fl:.4f}x) -> {exec_fl / s / peak_rate:.3f}; "
+          f"losses " + ", ".join(f"{v:.4f}" for v in losses)
+          + f"; peak device memory {peak / 2**30:.3f} GiB [{card}]")
+    print(f"train launches a step: flash {want[0]}, SSD {want[1]} "
+          f"wgmma_bf16 (forward {n_groups} and {cfg.num_layers}, the same "
+          f"again in the recompute; the backwards launch none)")
+    deltas = [[b - a for a, b in zip(host[i], host[i + 1])]
+              for i in range(n_steps)]
+    print("train steps, host side, each step (hook to hook): allocator "
+          "retries " + str([r[0] for r in deltas]) + ", cudaMalloc "
+          + str([r[1] for r in deltas]) + ", cudaFree "
+          + str([r[2] for r in deltas]) + ", reserved after " + ", ".join(
+              f"{h[3] / 2**30:.2f}" for h in host[1:])
+          + " GiB; Python GC " + ", ".join(f"{r[4]:.3f}" for r in deltas)
+          + " s, of which full (gen-2) collections "
+          + str([r[5] for r in deltas]))
+    t_prof = time.perf_counter()
+    kernels, ops = device_times(prof.key_averages())
+    print(f"train profile: read in {time.perf_counter() - t_prof:.2f} s")
+    if kernels:
+        # one window: the profiled step's device time over its own wall
+        # time (the profiler's own cost is in that time)
+        busy = sum(d[0] for d in kernels) / 1e6
+        flash = sum(d[0] for d in kernels if "flash" in d[2]) / 1e6
+        ssd = sum(d[0] for d in kernels if "ssd" in d[2]) / 1e6
+        wall = times[-1]
+        print(f"train profile: the profiled step, device busy {busy:.3f} s "
+              f"of its {wall:.3f} s (idle share {1 - busy / wall:.3f}; the "
+              f"timed steps' mean {s:.3f} s), "
+              f"{sum(d[1] for d in kernels)} kernels; flash {flash * 1e3:.2f} "
+              f"ms, SSD intra-chunk {ssd * 1e3:.2f} ms; device time by "
+              f"op: {top_times(ops, 10)}")
+    else:
+        print("train profile: device time not measured (the profiler saw "
+              "no device activity)")
+    del prof
+
+    # -- (b) after the full-width steps ------------------------------------
+    grads = layer_slices(trainer.step_fn.grads)
+    bad = [k for k, v in layer_sums(torch, trainer.step_fn.grads).items()
+           if not math.isfinite(v)]
+    check(not bad, f"non-finite gradients: {bad[:5]}")
+    zero = [k for k, g in grads.items() if not bool((g != 0).any())]
+    check(not zero, f"gradients that are zero throughout: {zero[:5]}")
+    after = layer_sums(torch, params)
+    # a bf16 vector of 1.0s (the norms, D) moves by ~lr = 3e-4 a step,
+    # less than half its ulp (2^-8): it stays; matrices and f32 leaves move
+    slices = layer_slices(params)
+    must = {k for k, t in slices.items()
+            if t.dtype == torch.float32 or t.ndim >= 2}
+    unmoved = sorted(k for k in must if after[k] == before[k])
+    check(not unmoved, f"parameters that did not move: {unmoved[:5]}")
+    still = sorted({p for p, i in before if after[(p, i)] == before[(p, i)]})
+    print(f"train checks: every gradient finite and non-zero over "
+          f"{len(grads)} leaves and layers; all {len(must)} matrices and "
+          f"f32 leaves (by layer) moved; unmoved bf16 vectors: {still}")
+    del grads, trainer
+    marks["full-width steps"] = time.perf_counter()
+
+    # -- (c) the other families, 2 layers, f32 -----------------------------
+    for model, S in TRAIN_FAMILY_MODELS:
+        train_family_check(torch, dev, model, S)
+    marks["families"] = time.perf_counter()
+    split, t = [], t_phase
+    for name, mark in marks.items():
+        split.append(f"{name} {mark - t:.2f}")
+        t = mark
+    print(f"train phase 12: {time.perf_counter() - t_phase:.2f} s ("
+          + ", ".join(split) + " s)")
+    # a timed step's launches, as counted (every step's equal `want`)
+    return {"flash_attention": per_step[1][0]["wgmma_bf16"],
+            "ssd_intra": per_step[1][1]["wgmma_bf16"]}
+
+
+def train_family_check(torch, dev, model: str, S: int) -> None:
+    """A family at published width and 2 layers, f32: one train step on
+    the card against the same step on the CPU (loss, grad norm, every
+    gradient leaf by `grads_close`, with exact launch counts; the limit
+    must reject an all-zero gradient and the card's step under one of
+    `grad_mutants`), then a crash after a checkpoint, a restore and a
+    resume through `Trainer`, whose last loss must equal an uninterrupted
+    run's."""
+    import contextlib
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data import synthetic_batch, to_device
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_intra_kernel
+    from repro_torch.models import init_params
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    t0 = time.perf_counter()
+    fa, sk = flash_attention_kernel, ssd_intra_kernel
+    cfg = get_config(model)
+    cfg = dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                              encoder_layers=min(cfg.encoder_layers, 2))
+    shape = ShapeSpec("t", S, 1, "train")
+    # phase 12's optimizer options: the checkpoints stay small (llama's
+    # f32 moments alone would be 4.8 GB a checkpoint)
+    opt = adamw.OptConfig(**TRAIN_OPT)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(6),
+                         device=dev)
+    batch = synthetic_batch(cfg, shape, 0, seed=6)
+    # the copies first: the card's step updates its parameters in place
+    trees = {"cpu": tree_map(lambda t: t.to("cpu", copy=True), params),
+             "mutant": tree_map(lambda t: t.clone(), params),
+             "card": params}
+    mutant = "d-dacs-dropped" if cfg.ssm_state else "dq-zeroed"
+    runs = {}
+    for where in ("mutant", "card", "cpu"):
+        d = torch.device("cpu") if where == "cpu" else dev
+        p = trees.pop(where)
+        step = make_train_step(cfg, opt)
+        zero_counts(fa, sk)
+        with (grad_mutants(torch)[mutant] if where == "mutant"
+              else contextlib.nullcontext()):
+            _, _, m = step(p, adamw.init(opt, p), to_device(cfg, batch, d))
+        runs[where] = ({k: float(v) for k, v in m.items()}, step.grads,
+                       (dict(fa.launches_by), dict(sk.launches_by)))
+    del params, p
+    (mc, gc, lc), (mu, gu, _) = runs["card"], runs["cpu"]
+    gm = runs["mutant"][1]
+    want = {"llama3.2-3b": (4, 0), "mamba2-780m": (0, 4),
+            "whisper-small": (12, 0)}[model]
+    check(lc == ({"wgmma_bf16": 0, "simt": want[0]},
+                 {"wgmma_bf16": 0, "simt": want[1]}),
+          f"{model}: a train step launched {lc}, expected {want[0]} flash "
+          f"and {want[1]} SSD on simt (f32; forward and recompute)")
+    for k in mu:
+        check(abs(mc[k] - mu[k]) <= 1e-4 * abs(mu[k]),
+              f"{model}: {k} {mc[k]} on the card, {mu[k]} on the CPU")
+    grads_close(torch, f"{model} (2 layers) train step gradients, card vs "
+                "CPU, f32", gc, gu,
+                {"zeroed": tree_map(torch.zeros_like, gu), mutant: gm})
+    del runs, gc, gu, gm
+
+    def trainer(ck, total, every, hook=None):
+        return Trainer(cfg, shape, opt,
+                       TrainConfig(total_steps=total, ckpt_every=every,
+                                   ckpt_dir=ck, keep=1, seed=7, log_every=1,
+                                   monitor=False, device=str(dev)),
+                       fault_hook=hook)
+
+    def crash(step):
+        if step == 2:
+            raise RuntimeError("injected failure")
+    with tempfile.TemporaryDirectory() as ck:
+        full = trainer(ck + "/a", 3, 0).run()
+        try:
+            trainer(ck + "/b", 3, 2, crash).run()
+            fail(f"{model}: the injected failure did not stop the run")
+        except RuntimeError as e:
+            check("injected" in str(e), f"{model}: {e}")
+        resumed = trainer(ck + "/b", 3, 2).run()
+    a, b = full["final_loss"], resumed["final_loss"]
+    check(resumed["final_step"] == 3
+          and [m["step"] for m in resumed["metrics"]] == [3]
+          and abs(a - b) <= 1e-3 * abs(a),
+          f"{model}: the resumed run's last loss {b} (steps "
+          f"{[m['step'] for m in resumed['metrics']]}), uninterrupted {a}")
+    print(f"train family {model}: loss {mc['loss']:.6f} card, "
+          f"{mu['loss']:.6f} CPU; grad norm {mc['grad_norm']:.6f}, "
+          f"{mu['grad_norm']:.6f}; launches flash {want[0]}, SSD {want[1]} "
+          f"simt; crash at step 2 after a checkpoint, resumed: last loss "
+          f"{b:.6f} vs uninterrupted {a:.6f} (|diff| {abs(a - b):.3e}); "
+          f"{time.perf_counter() - t0:.2f} s")
+
 
 if __name__ == "__main__":
     main()

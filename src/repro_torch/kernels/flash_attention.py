@@ -8,7 +8,9 @@ design and bound), which masks the ragged edges of Sq and Sk itself, so
 it takes any sequence lengths and any hd up to 256.  bf16 with hd 64,
 96, 112, 128 or 192 runs its TMA + wgmma kernel, everything else its
 SIMT kernel (`variant`).  A CPU tensor takes the plain version,
-`ref.ref_attention`.
+`ref.ref_attention`.  A CUDA call whose inputs require grad, with grad
+mode on, raises: the launch is invisible to autograd, and
+`kernels.ops.flash` carries the gradient through `kernels.grad`.
 """
 from __future__ import annotations
 
@@ -84,6 +86,11 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = hd ** -0.5 if scale is None else scale
     if q.device.type != "cuda":
         return ref_attention(q, k, v, causal=causal, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError("the flash kernel's output carries no gradient: "
+                           "call kernels.ops.flash, which routes inputs that "
+                           "require grad through grad.FlashAttention")
     if q.dtype not in _CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("the kernel takes q, k and v of one dtype, float32 "
                         "or bfloat16")

@@ -6,6 +6,10 @@ computed) and records the executed-FLOPs metadata the OFU pipeline
 consumes; `flash` and `ssd` are the attention and Mamba2 entry points.
 Each runs the CUDA kernel for tensors on the card and the kernel's plain
 version for tensors on the CPU (the kernel modules pick by device).
+`flash` and `ssd` are differentiable: with grad mode on and an input
+that requires grad they go through `kernels.grad`'s autograd Functions
+(the same kernel forward, an explicit backward); otherwise, as on the
+serving path, they call the kernels' wrappers directly.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import torch.nn.functional as F
 from repro_torch.core.tile_quant import TilePolicy, pick_policy
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm as gemm_mod
-from repro_torch.kernels import ssd_scan
+from repro_torch.kernels import grad, ssd_scan
+from repro_torch.kernels.ref import compute_dtype
 
 _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "fp32",
                 torch.int8: "int8"}
@@ -78,6 +83,8 @@ def flash(q, k, v, *, causal: bool, scale=None) -> torch.Tensor:
     is not a multiple of its key block to its plain version, the card's
     kernel masks both ragged edges itself and always runs.
     """
+    if grad.needs_grad(q, k, v):
+        return grad.FlashAttention.apply(q, k, v, causal, scale)
     return fa.flash_attention_kernel(q, k, v, causal=causal, scale=scale)
 
 
@@ -92,10 +99,19 @@ def ssd_intra_inputs(x, dt, A, Bm, Cm, *, chunk: int) -> tuple:
     nc = S // Q
     if nc * Q != S:
         raise ValueError(f"S = {S} is not a multiple of chunk {Q}")
-    dtc = dt.reshape(Bsz * nc, Q, nh).to(torch.float32)
-    dacs = torch.cumsum(dtc * A.to(torch.float32), dim=1)
+    ct = compute_dtype(x.dtype)
+    dtc = dt.reshape(Bsz * nc, Q, nh).to(ct)
+    dacs = torch.cumsum(dtc * A.to(ct), dim=1)
     return tuple(t.reshape(Bsz * nc, Q, *t.shape[2:]).contiguous()
                  for t in (x, dtc, dacs, Bm, Cm))
+
+
+def ssd_intra(x, dt, dacs, b, c) -> torch.Tensor:
+    """The intra-chunk term on `ssd_intra_inputs`' tensors: the kernel,
+    through `grad.SSDIntra` when a gradient must pass it."""
+    if grad.needs_grad(x, dt, dacs, b, c):
+        return grad.SSDIntra.apply(x, dt, dacs, b, c)
+    return ssd_scan.ssd_intra_kernel(x, dt, dacs, b, c)
 
 
 def ssd(x, dt, A, Bm, Cm, *, chunk: int) -> torch.Tensor:
@@ -110,10 +126,10 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int) -> torch.Tensor:
     inputs = ssd_intra_inputs(x, dt, A, Bm, Cm, chunk=chunk)
     Q = inputs[0].shape[1]
     nc = S // Q
-    f32 = torch.float32
+    f32 = compute_dtype(x.dtype)
     dtc = inputs[1].reshape(Bsz, nc, Q, nh)
     dacs = inputs[2].reshape(Bsz, nc, Q, nh)
-    y_intra = ssd_scan.ssd_intra_kernel(*inputs)
+    y_intra = ssd_intra(*inputs)
     y_intra = y_intra.reshape(Bsz, nc, Q, nh, hd).to(f32)
 
     # ---- inter-chunk recurrence + contribution (plain PyTorch) ----

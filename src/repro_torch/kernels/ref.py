@@ -13,6 +13,11 @@ from __future__ import annotations
 import torch
 
 
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """f32, or f64 for f64 inputs (the gradient tests' precision)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def ref_matmul(x: torch.Tensor, y: torch.Tensor):
     """x @ y, summed in f32 (exactly, in int32, for int8) and cast once
     to int32 for int8, else to x's dtype."""
@@ -25,25 +30,27 @@ def ref_matmul(x: torch.Tensor, y: torch.Tensor):
 
 def ref_attention(q, k, v, *, causal: bool, scale=None) -> torch.Tensor:
     """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd), H % KV == 0.  Scores in
-    f32, causal mask top-left aligned (query i sees keys j <= i), p cast
-    to v's dtype before the PV product, output in q's dtype."""
+    f32 (f64 for f64 inputs), causal mask top-left aligned (query i sees
+    keys j <= i), p cast to v's dtype before the PV product, output in
+    q's dtype."""
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
     G = H // KV
+    ct = compute_dtype(q.dtype)
     scale = hd ** -0.5 if scale is None else scale
     qg = q.reshape(B, Sq, KV, G, hd)
-    s = torch.einsum("bqkgd,bjkd->bkgqj", qg.float(), k.float()) * scale
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qg.to(ct), k.to(ct)) * scale
     if causal:
         mask = (torch.arange(Sq, device=q.device)[:, None]
                 >= torch.arange(Sk, device=q.device)[None, :])
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqj,bjkd->bkgqd", p.to(v.dtype).float(), v.float())
+    o = torch.einsum("bkgqj,bjkd->bkgqd", p.to(v.dtype).to(ct), v.to(ct))
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
 def ref_ssd_intra(x, dt, dacs, b, c) -> torch.Tensor:
-    """Direct quadratic intra-chunk SSD, in f32.
+    """Direct quadratic intra-chunk SSD, in f32 (f64 for f64 inputs).
 
     x: (BC, Q, nh, hd); dt/dacs: (BC, Q, nh); b/c: (BC, Q, g, ds) with
     nh % g == 0, head h reading group h // (nh / g) (g = nh is the
@@ -51,12 +58,14 @@ def ref_ssd_intra(x, dt, dacs, b, c) -> torch.Tensor:
     dtype, L = exp(dacs_i − dacs_j) for i >= j, else 0.
     """
     Q, nh = x.shape[1], x.shape[2]
+    ct = compute_dtype(x.dtype)
     b, c = (t.repeat_interleave(nh // t.shape[2], dim=2) for t in (b, c))
-    cb = torch.einsum("zqhd,zkhd->zhqk", c.float(), b.float())
-    da = dacs.float().transpose(1, 2)                    # (BC, nh, Q)
+    cb = torch.einsum("zqhd,zkhd->zhqk", c.to(ct), b.to(ct))
+    da = dacs.to(ct).transpose(1, 2)                     # (BC, nh, Q)
     seg = da[:, :, :, None] - da[:, :, None, :]
-    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    L = torch.where(mask, seg.exp(), torch.zeros((), device=x.device))
-    m = cb * L * dt.float().transpose(1, 2)[:, :, None, :]
-    y = torch.einsum("zhqk,zkhd->zqhd", m, x.float())
+    upper = torch.ones((Q, Q), dtype=torch.bool, device=x.device).triu(1)
+    # masked before exp: no inf above the diagonal for autograd to meet
+    L = seg.masked_fill(upper, float("-inf")).exp()
+    m = cb * L * dt.to(ct).transpose(1, 2)[:, :, None, :]
+    y = torch.einsum("zhqk,zkhd->zqhd", m, x.to(ct))
     return y.to(x.dtype)

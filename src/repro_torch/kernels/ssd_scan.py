@@ -7,7 +7,9 @@ the within-chunk cumsum of dA.  A CUDA tensor launches `csrc/ssd_scan.cu`
 its source notes its design and bound): bf16 at the shapes `variant`
 names runs its TMA + wgmma kernel, which computes C·Bᵀ once for
 `wgmma_heads` heads of one group, everything else its SIMT kernel.  A
-CPU tensor takes the plain version, `ref.ref_ssd_intra`.  The linear
+CPU tensor takes the plain version, `ref.ref_ssd_intra`.  A CUDA call
+whose inputs require grad, with grad mode on, raises: `kernels.ops.ssd`
+carries the gradient through `kernels.grad`.  The linear
 inter-chunk recurrence stays in plain PyTorch (`ops.ssd`).
 
 B/C arrive in their groups: head h reads group h // (nh / g), where the
@@ -105,6 +107,11 @@ def ssd_intra_kernel(x, dt, dacs, b, c, *, head_block: int = 8):
         raise ValueError("inputs lie on different devices")
     if x.device.type != "cuda":
         return ref_ssd_intra(x, dt, dacs, b, c)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, dacs, b, c)):
+        raise RuntimeError("the SSD kernel's output carries no gradient: "
+                           "call kernels.ops.ssd, which routes inputs that "
+                           "require grad through grad.SSDIntra")
     if x.dtype not in _CODES or b.dtype != x.dtype or c.dtype != x.dtype:
         raise TypeError("the kernel takes x, b and c of one dtype, float32 "
                         "or bfloat16")

@@ -26,9 +26,11 @@ def _positions(cache_index: torch.Tensor) -> torch.Tensor:
 
 def _write(cache: torch.Tensor, cache_index: torch.Tensor,
            new: torch.Tensor) -> torch.Tensor:
-    """cache[:, cache_index] = new[:, 0], in place."""
-    return cache.index_copy_(1, cache_index.reshape(1).long(),
-                             new.to(cache.dtype))
+    """cache[:, cache_index] = new[:, 0], in place.  An index past the
+    cache's end writes its last row, as the reference's
+    `dynamic_update_slice` clamps its start (on the device: no sync)."""
+    idx = cache_index.reshape(1).long().clamp(0, cache.shape[1] - 1)
+    return cache.index_copy_(1, idx, new.to(cache.dtype))
 
 
 # ===========================================================================

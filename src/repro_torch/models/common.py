@@ -6,7 +6,7 @@ runs on one device, so the reference's `ShardCtx`, `constrain` and
 `head_shardable` (a mesh and its sharding constraints) have no
 counterpart here.  Full-sequence attention goes through the kernel API
 (`kernels.ops.flash`, the flash kernel on the card, its plain version on
-the CPU).
+the CPU).  `remat` is the reference's `_remat` for the layer bodies.
 """
 from __future__ import annotations
 
@@ -122,6 +122,43 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     o = torch.einsum("bkgj,bjkd->bkgd", p.to(v_cache.dtype).float(),
                      v_cache.float())
     return o.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# per-layer recompute (the reference's `_remat`)
+# ---------------------------------------------------------------------------
+#: the matrix products with no batch dims, which `remat="dots"` saves
+#: (the reference's `dots_with_no_batch_dims_saveable`)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_dots():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_save_dots_policy)
+
+
+def remat(cfg, fn, *args):
+    """fn(*args), a layer body, under `cfg.remat` when grad mode is on:
+    "nothing" keeps only the body's inputs for the backward and runs the
+    body again there (`torch.utils.checkpoint`, non-reentrant, so the
+    kernels' autograd Functions run again inside the recompute), "dots"
+    also keeps its matrix products, "none" keeps everything.  With grad
+    mode off (serving) it is a plain call."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_save_dots)
+    if cfg.remat != "nothing":
+        raise ValueError(f"remat policy {cfg.remat!r}")
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (dense_init, flash_attention,
-                                       rms_norm, stack_init)
+                                       remat, rms_norm, stack_init)
 from repro_torch.models.transformer import layer, lm_logits, n_layers
 
 
@@ -78,13 +78,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
 def encode(cfg: ModelConfig, params, frame_embeds):
     x = frame_embeds.to(getattr(torch, cfg.dtype))
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(n_layers(params["enc_layers"])):
-        p = layer(params["enc_layers"], i)
+
+    def body(x, p):
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + attn.gqa_apply(cfg, p["attn"], h, positions=positions,
                                causal=False)
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + moe_mod.mlp_apply(cfg, p["mlp"], h)
+        return x + moe_mod.mlp_apply(cfg, p["mlp"], h)
+    for i in range(n_layers(params["enc_layers"])):
+        x = remat(cfg, body, x, layer(params["enc_layers"], i))
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -103,8 +105,8 @@ def forward(cfg: ModelConfig, params, batch):
     x = params["embed"][batch["tokens"]].to(getattr(torch, cfg.dtype))
     positions = torch.arange(x.shape[1], device=x.device)
     for i in range(n_layers(params["dec_layers"])):
-        x = _dec_block(cfg, layer(params["dec_layers"], i), x, enc_out,
-                       positions)
+        x = remat(cfg, _dec_block, cfg, layer(params["dec_layers"], i), x,
+                  enc_out, positions)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(cfg, params, h)
 

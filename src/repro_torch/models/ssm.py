@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import compute_dtype
 from repro_torch.models.common import dense_init, rms_norm
 
 
@@ -91,7 +92,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
     nc = S // Q
     if nc * Q != S:
         raise ValueError(f"seq {S} not divisible by chunk {Q}")
-    f32 = torch.float32
+    f32 = compute_dtype(x.dtype)
 
     xc = x.reshape(Bsz, nc, Q, nh, hd)
     dtc = dt.reshape(Bsz, nc, Q, nh).to(f32)

@@ -13,8 +13,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
-from repro_torch.models.common import (dense_init, rms_norm, stack_init,
-                                       tree_map)
+from repro_torch.models.common import (dense_init, remat, rms_norm,
+                                       stack_init, tree_map)
 from repro_torch.models.transformer import layer, lm_logits, n_layers
 
 
@@ -44,11 +44,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
     return params
 
 
+def _mamba_block(cfg, x, p):
+    return x + ssm.mamba_apply(cfg, p["mixer"],
+                               rms_norm(x, p["norm"], cfg.norm_eps))
+
+
 def _mamba_stack(cfg, stacked, x):
     for i in range(n_layers(stacked)):
-        p = layer(stacked, i)
-        h = rms_norm(x, p["norm"], cfg.norm_eps)
-        x = x + ssm.mamba_apply(cfg, p["mixer"], h)
+        x = remat(cfg, _mamba_block, cfg, x, layer(stacked, i))
     return x
 
 
@@ -77,7 +80,10 @@ def forward(cfg: ModelConfig, params, batch):
     else:
         positions = torch.arange(x.shape[1], device=x.device)
         for (s, e) in _groups(cfg):
-            x = _shared_attn_apply(cfg, params["shared_attn"], x, positions)
+            # outside the layer stacks, so it carries its own remat, as
+            # in the reference
+            x = remat(cfg, _shared_attn_apply, cfg, params["shared_attn"],
+                      x, positions)
             x = _mamba_stack(cfg, _slice(params["layers"], s, e), x)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(cfg, params, h)

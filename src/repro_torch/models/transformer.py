@@ -1,10 +1,11 @@
 """Decoder-only transformer covering the dense / moe / mla_moe / vlm families.
 
 Layers are stacked along a leading L axis, as in the reference, and
-driven by a Python loop over it (the reference's `lax.scan`).  The
-reference's `_remat` (`jax.checkpoint`) serves training only and its
-`_sp` is a sharding constraint: the serving path on one device has
-neither.
+driven by a Python loop over it (the reference's `lax.scan`); a stacked
+leaf may also be a sequence of per-layer tensors (the train step's
+per-layer gradient leaves), which indexes alike.  Each layer body runs
+under `common.remat` (the reference's `_remat`); the reference's `_sp`
+is a sharding constraint, which one device does not need.
 Heterogeneous stacks (deepseek first-k dense layers) are two stacks.
 """
 from __future__ import annotations
@@ -14,8 +15,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import (dense_init, rms_norm, stack_init,
-                                       tree_map)
+from repro_torch.models.common import (dense_init, remat, rms_norm,
+                                       stack_init, tree_map)
 
 
 # ---------------------------------------------------------------------------
@@ -95,12 +96,14 @@ def layer(stacked, i: int):
 def n_layers(stacked) -> int:
     while isinstance(stacked, dict):
         stacked = next(iter(stacked.values()))
-    return stacked.shape[0]
+    return len(stacked)
 
 
 def scan_stack(cfg: ModelConfig, stacked, x, positions, *, moe: bool):
+    def body(x, p):
+        return block_apply(cfg, p, x, positions, moe=moe)
     for i in range(n_layers(stacked)):
-        x = block_apply(cfg, layer(stacked, i), x, positions, moe=moe)
+        x = remat(cfg, body, x, layer(stacked, i))
     return x
 
 

@@ -15,8 +15,9 @@ error beyond that allowance: ||port - ref|| / ||ref|| <= 2e-2 +
 same bf16 values.
 
 The `gpu` cases at the end hold the card's forward (through the flash
-and SSD kernels) against the CPU's plain route and import nothing of
-JAX: `pytest -m gpu tests/test_torch_models.py`."""
+and SSD kernels) and its decode past the caches' end against the CPU's
+plain route and import nothing of JAX:
+`pytest -m gpu tests/test_torch_models.py`."""
 import dataclasses
 
 import numpy as np
@@ -42,6 +43,23 @@ KINDS = {"train": ("t", 32, 2, "train"), "prefill": ("p", 32, 2, "prefill"),
 
 def _jax():
     return pytest.importorskip("jax")
+
+
+#: XLA's CPU backend with its LLVM optimisations off, its fusions emitted
+#: by the older elemental emitter and each module codegen'd in one piece:
+#: the same HLO, so the same operations and roundings, compiled in about a
+#: sixth of the default's time (the reference's compiles are most of this
+#: file's cost)
+_XLA_FAST = {"xla_backend_optimization_level": 0,
+             "xla_llvm_disable_expensive_passes": True,
+             "xla_cpu_use_fusion_emitters": False,
+             "xla_cpu_parallel_codegen_split_count": 1}
+
+
+def _run(fn, *args):
+    """fn(*args) through jax.jit, compiled under `_XLA_FAST`."""
+    return _jax().jit(fn).lower(*args).compile(
+        compiler_options=_XLA_FAST)(*args)
 
 
 def _np(x) -> np.ndarray:
@@ -87,7 +105,7 @@ def _ref(arch):
         from repro.configs import get_config as R_get
         from repro.models import init_params as R_init
         cfg = R_get(arch).smoke()
-        params = jax.jit(R_init, static_argnums=0)(cfg, jax.random.key(0))
+        params = _run(lambda k: R_init(cfg, k), jax.random.key(0))
         _REF[arch] = (cfg, jax.tree.map(lambda x: np.asarray(x, np.float32),
                                         params))
     return _REF[arch]
@@ -133,9 +151,9 @@ def _outputs(arch, dtype, kind):
         if dtype == "float32":
             batch = _as_f32(batch)
         jbatch = _to_jax(batch)
-        fn = jax.jit(R_forward if kind == "fwd" else R_decode,
-                     static_argnums=0)
-        want = jax.block_until_ready(fn(rcfg, jparams, jbatch))
+        fn = R_forward if kind == "fwd" else R_decode
+        want = jax.block_until_ready(
+            _run(lambda p, b: fn(rcfg, p, b), jparams, jbatch))
         _OUT[key] = (want, (forward if kind == "fwd" else decode_step)(
             cfg, params, batch))
     return _OUT[key]
@@ -333,6 +351,58 @@ def test_serve_loop_matches_reference_greedy_tokens():
                   **caches}
 
 
+@pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-v3-671b",
+                                  "zamba2-7b", "whisper-small"])
+def test_decode_past_the_cache_end_matches_reference(arch):
+    """7 greedy tokens over caches of 4 positions (B 2, f32; GQA, MLA, the
+    hybrid's shared block, enc-dec): from the 5th token on, the
+    reference's `dynamic_update_slice` clamps its write to the last row,
+    and the port's clamped write gives the reference's tokens."""
+    jax = _jax()
+    jnp = jax.numpy
+    from repro.launch.serve import init_caches as R_init_caches
+    from repro.train.steps import make_serve_step as R_serve_step
+    from repro_torch.launch.serve import decode_batch
+    from repro_torch.train.steps import make_serve_step
+    rcfg, rparams = _ref(arch)
+    rcfg = dataclasses.replace(rcfg, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
+    params = params_from_jax(rparams, "float32", "cpu")
+    B, S, T = 2, 4, 7
+    tb = decode_batch(cfg, B, S, "cpu")
+    rb = {"tokens": jnp.zeros((B, 1), jnp.int32),
+          "cache_index": jnp.asarray(0, jnp.int32),
+          **R_init_caches(rcfg, B, S)}
+    if cfg.family == "encdec":
+        enc = np.random.default_rng(5).standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        tb["encoder_out"] = torch.from_numpy(enc.copy())
+        rb["encoder_out"] = jnp.asarray(enc)
+    r_serve, serve = jax.jit(R_serve_step(rcfg)), make_serve_step(cfg)
+    jparams = jax.tree.map(jnp.asarray, rparams)
+    got, want = [], []
+    for i in range(T):
+        r_nxt, r_caches = r_serve(jparams, rb)
+        nxt, caches = serve(params, tb)
+        want.append(np.asarray(r_nxt)[:, 0])
+        got.append(nxt.numpy()[:, 0])
+        rb.update(r_caches, tokens=r_nxt.astype(jnp.int32),
+                  cache_index=jnp.asarray(i + 1, jnp.int32))
+        tb.update(caches, tokens=nxt.to(torch.int32),
+                  cache_index=torch.tensor(i + 1, dtype=torch.int32))
+    assert np.array_equal(np.stack(got, 1), np.stack(want, 1)), \
+        (arch, np.stack(got, 1), np.stack(want, 1))
+
+
+def test_serve_main_decodes_past_the_cache_end(capsys):
+    """`launch.serve` asked for more tokens than its context holds runs
+    to the end, as the reference's does."""
+    from repro_torch.launch.serve import main
+    main(["--arch", "llama3.2-3b", "--smoke", "--tokens", "6", "--batch",
+          "1", "--ctx-len", "4", "--device", "cpu"])
+    assert "decoded 6 tokens x 1 seqs" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-v3-671b"])
 def test_loss_fn_matches_reference(arch):
     """The forward-only loss, with deepseek-v3's multi-token-prediction
@@ -345,8 +415,9 @@ def test_loss_fn_matches_reference(arch):
     cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
     batch = _as_f32(make_inputs(get_config(arch).smoke(),
                                 ShapeSpec(*KINDS["train"]), device="cpu"))
-    want, want_aux = jax.jit(R_loss, static_argnums=0)(
-        rcfg, jax.tree.map(jax.numpy.asarray, rparams), _to_jax(batch))
+    want, want_aux = _run(lambda p, b: R_loss(rcfg, p, b),
+                          jax.tree.map(jax.numpy.asarray, rparams),
+                          _to_jax(batch))
     got, aux = loss_fn(cfg, params_from_jax(rparams, "float32", "cpu"),
                        batch)
     assert sorted(aux) == sorted(want_aux)
@@ -638,3 +709,33 @@ def test_card_forward_matches_cpu(cuda, arch):
     assert (flash_attention_kernel.launches - n[0],
             ssd_intra_kernel.launches - n[1]) == _expected_launches(cfg)
     _close_f32(got.cpu(), want, arch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-v3-671b",
+                                  "zamba2-7b", "whisper-small"])
+def test_card_decode_past_the_cache_end_matches_cpu(cuda, arch):
+    """7 greedy tokens over caches of 4 positions on the card, f32: the
+    clamped write raises no device-side assert, and the tokens and the
+    caches equal the CPU's."""
+    from repro_torch.launch.serve import decode_batch, generate
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
+    params = init_params(cfg, device="cpu")
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = T_common.tree_map(lambda t: t.to(dev), params)
+        batch = decode_batch(cfg, 2, 4, dev)
+        if cfg.family == "encdec":
+            batch["encoder_out"] = torch.from_numpy(
+                np.random.default_rng(5).standard_normal(
+                    (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+            ).to(dev)
+        with torch.inference_mode():
+            toks = generate(cfg, p, batch, 7)
+        torch.cuda.synchronize()
+        runs[str(dev)] = (toks.cpu(), {k: v.cpu() for k, v in batch.items()
+                                       if k.endswith(("cache", "state"))})
+    (tc, cc), (tg, cg) = runs["cpu"], runs[str(cuda)]
+    assert torch.equal(tg, tc), (arch, tg, tc)
+    for k in cc:
+        _close_f32(cg[k], cc[k], f"{arch} {k}")
