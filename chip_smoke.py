@@ -152,19 +152,44 @@
    layers, in f32: a train step on the card against the CPU with exact
    launch counts, then a crash after a checkpoint, a restore and a
    resume whose last loss equals an uninterrupted run's.
+13. Runs the paper's benchmark suite on the card at the reference's own
+   sizes (`repro_torch.benchmarks.run`'s seven modules: Fig. 1, Fig. 3,
+   Table I, Table II, Fig. 5 / Table III / §V-C over the 608-job fleet,
+   §VI, and the fleet engine at 1,000 devices x 1 h, the 600-job sweep,
+   100,000 devices x 1 h and the 10k-host ingest tier; its CSV goes to
+   build/bench/), with the histogram and GEMM kernels' counts set to 0
+   just before and read just after.  Fails unless every module runs,
+   every Fig. 1 closed-form, Fig. 3, Table I and Table II row equals the
+   port's own CPU run of it, Fig. 1's kernel rows are exact, Fig. 5
+   flags exactly the 82 affected jobs with r after exclusion >= 0.75,
+   the fleet engine's kernel ingest counts equal its plain version's,
+   and the histogram kernel launched at least 608 times and the GEMM at
+   least 3.  Then drives Fig. 1's sweep through the GEMM kernel at the
+   sweep's sizes (N 4,096, 8,192 and 16,384, and the sweep's first
+   three random shapes with every side >= 4,096) in bf16, int8 and
+   fp32: launched FLOPs == GemmProfile == closed form on every call, 64
+   rows of each output against a float64 product, the kernel's ms and
+   TFLOP/s, launches by variant.  Last, the examples on the card:
+   quickstart trains zamba2-7b's smoke config 10 steps (exact flash and
+   SSD launch counts, finite losses) and a re-run resumes from its
+   checkpoint; fleet_monitoring flags the jobs it flags on the CPU;
+   mixed_precision_pretrain's OFU tracks its MFU shift.
 
 Prints the phase times and peak device memory, then one JSON line with
 every kernel's record (the histogram kernel's also carries
 `serve_launches`, `scorecard_launches`, `table3_launches` and
 `live_launches`, its counts over phases 5-8; the flash and SSD kernels'
 carry `model_launches`, their launches in phase 11's prefill, and
-`train_launches`, their launches a phase 12 train step) and, last,
+`train_launches`, their launches a phase 12 train step; the histogram
+and GEMM kernels' carry `bench_launches`, their counts over phase 13's
+benchmark suite) and, last,
 `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result,
 when a phase fails, when CUDA is absent, or when run outside a checkout
 of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -469,6 +494,10 @@ def main() -> None:
     del params
     for name, n in train_launches.items():
         records[name]["train_launches"] = n
+
+    # -- 13. the paper's benchmark suite and examples on the card ----------
+    for name, n in bench_phase(torch, dev, card).items():
+        records[name]["bench_launches"] = n
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3016,6 +3045,276 @@ def train_family_check(torch, dev, model: str, S: int) -> None:
           f"simt; crash at step 2 after a checkpoint, resumed: last loss "
           f"{b:.6f} vs uninterrupted {a:.6f} (|diff| {abs(a - b):.3e}); "
           f"{time.perf_counter() - t0:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# 13. the paper's benchmark suite and examples on the card
+# ---------------------------------------------------------------------------
+#: the benchmark modules whose rows are host NumPy: each row's name and
+#: derived field must equal the port's own CPU run's (Fig. 1's closed
+#: form, Fig. 3, Table I, Table II)
+HOST_BENCH = ("tile_quantization", "precision_scaling", "clock_sampling",
+              "prediction_accuracy")
+#: Fig. 1's sweep driven through the GEMM kernel: its aligned sizes and
+#: the first random shapes of its rng with every side >= 4,096, in each
+#: precision
+SWEEP_N, SWEEP_RANDOM = (4096, 8192, 16384), 3
+SWEEP_KINDS = ("bf16", "int8", "fp32")
+#: the quickstart example on the card: its arch, --steps, and the
+#: re-run's --steps, which must resume from the first run's checkpoint
+QUICKSTART = ("zamba2-7b", 10, 15)
+
+
+@contextlib.contextmanager
+def quiet(path: Path):
+    """Send a phase's own prints (the benchmark CSV, the examples'
+    walkthroughs) to `path` instead of this script's output."""
+    with path.open("a") as f, contextlib.redirect_stdout(f):
+        yield
+
+
+def bench_phase(torch, dev, card: str) -> dict:
+    """13. The paper's benchmark suite (`repro_torch.benchmarks.run`'s
+    seven modules, on the card at the reference's own sizes), Fig. 1's
+    sweep through the GEMM kernel at the sweep's sizes, and the three
+    examples on the card.  Returns the launches of the histogram and GEMM
+    kernels over the suite's run."""
+    import importlib
+    import os
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.kernels import fleet_hist as fh
+    from repro_torch.kernels import gemm
+
+    t_phase = time.perf_counter()
+    out = Path(__file__).resolve().parent / "build" / "bench"
+    out.mkdir(parents=True, exist_ok=True)
+    log = out / "bench.log"
+    log.unlink(missing_ok=True)
+    os.environ["BENCH_FLEET_JSON"] = str(out / "BENCH_fleet.json")
+    Path(os.environ["BENCH_FLEET_JSON"]).unlink(missing_ok=True)
+
+    fh.ofu_bucket_hist.launches = 0
+    zero_counts(gemm.gemm_padded)
+    torch.cuda.synchronize()
+    try:
+        with quiet(log):
+            results = bench_run.main([])
+    except SystemExit as e:
+        errors = [ln for ln in log.read_text().splitlines() if ",ERROR:" in ln]
+        fail(f"benchmark suite: {e}: {errors}")
+    torch.cuda.synchronize()
+    launches = {"fleet_hist": fh.ofu_bucket_hist.launches,
+                "gemm": gemm.gemm_padded.launches}
+    names = [m.__name__.split(".")[-1] for m in bench_run.modules()]
+    check(sorted(results) == sorted(names),
+          f"benchmark suite ran {sorted(results)}, expected {names}")
+    print(f"bench suite: launches {launches} (B2 by variant "
+          f"{dict(gemm.gemm_padded.launches_by)}); wall s " + ", ".join(
+              f"{n} {results[n][1]:.2f}" for n in names)
+          + f"; {card}")
+    check(launches["fleet_hist"] >= 608 and launches["gemm"] >= 3,
+          f"the suite launched the histogram kernel "
+          f"{launches['fleet_hist']} times (>= 608) and the GEMM "
+          f"{launches['gemm']} (>= 3)")
+    rows = {r.name: r for rs, _ in results.values() for r in rs}
+
+    # the host NumPy rows against the port's own run of them on the CPU
+    t0 = time.perf_counter()
+    cpu = []
+    for name in HOST_BENCH:
+        mod = importlib.import_module(f"repro_torch.benchmarks.{name}")
+        kw = {"verify_kernel": False} if name == "tile_quantization" else {}
+        cpu += mod.run(device="cpu", **kw)
+    for r in cpu:
+        got = rows.get(r.name)
+        check(got is not None and got.derived == r.derived,
+              f"{r.name}: the card run's row {got} differs from the CPU "
+              f"run's {r}")
+    kernel_row = rows["fig1.kernel_grid_vs_closed_form"].derived
+    check(kernel_row == "exact_match_on=3 shapes (0 FLOP error)",
+          f"fig1.kernel_grid_vs_closed_form: {kernel_row}")
+    print(f"bench host rows: {len(cpu)} rows of {', '.join(HOST_BENCH)} "
+          f"equal to the CPU run's ({time.perf_counter() - t0:.2f} s); "
+          f"fig1.kernel_grid_vs_closed_form: {kernel_row}")
+    for name in ("fig5.correlation", "correlation.miscalc_scan"):
+        kv = dict(f.split("=", 1) for f in rows[name].derived.split())
+        check(kv["exact_match"] == "True" and kv["flagged"] == "82"
+              and float(kv["r_after_exclusion"]) >= 0.75,
+              f"{name}: {rows[name].derived}")
+        print(f"bench {name}: {rows[name].derived}")
+    with open(os.environ["BENCH_FLEET_JSON"]) as f:
+        cases = {c["name"]: c for c in json.load(f)["cases"]}
+    ft = cases["fleet_engine_torch"]["metrics"]
+    check(ft["route"] == "cuda" and ft["kernel_counts_equal_plain"],
+          f"fleet_engine_torch: {ft}")
+    print(f"bench fleet_engine_torch: {ft['devices']} devices x "
+          f"{ft['hours']} h, engine {ft['torch_wall_s']} s on the card "
+          f"({ft['cpu_wall_s']} s on the host CPU), ingest samples/s kernel "
+          f"{ft['ingest_kernel_samples_per_s']}, plain "
+          f"{ft['ingest_plain_samples_per_s']}, host NumPy "
+          f"{ft['ingest_numpy_samples_per_s']}; kernel counts == plain "
+          "counts bitwise")
+    for name in ("fleet_engine.vector_1000dev_1h_rollup",
+                 "fleet_engine.perjob_600job_sweep",
+                 "fleet_engine.fused_600job_sweep",
+                 "fleet_engine.collector_round_64job",
+                 "fleet_engine.ingest_submit_10000host",
+                 "fig6.embodied_agent_regression",
+                 "fig7.mixed_precision_6144"):
+        print(f"bench {rows[name].csv()}")
+
+    gemm_sweep(torch, dev, card)
+    examples_phase(torch, dev, card, out)
+    print(f"bench phase 13: {time.perf_counter() - t_phase:.2f} s ({card})")
+    return launches
+
+
+def gemm_sweep(torch, dev, card: str) -> None:
+    """Fig. 1's sweep through the GEMM kernel at the sweep's own sizes in
+    bf16, int8 and fp32: each call's launched FLOPs must equal its
+    GemmProfile's and the closed form; 64 random rows of each output are
+    held against a float64 product of the same operands (bf16 to 2^-6 of
+    the value plus 2^-5 of the row's RMS, fp32 as `gemm_path`, int8
+    exact); the kernel alone is timed on the padded operands."""
+    from repro_torch.core.tile_quant import pick_policy, profiled_flops
+    from repro_torch.kernels import gemm, ops
+
+    rng = np.random.default_rng(0)      # tile_quantization.run's stream:
+    for _ in range(300):                # past its first band, the bf16
+        rng.integers(256, 12288, 3)     # random shapes of any size
+    shapes = [(n, n, n) for n in SWEEP_N] + [
+        tuple(int(v) for v in rng.integers(4096, 12288, 3))
+        for _ in range(SWEEP_RANDOM)]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    zero_counts(gemm.gemm_padded)
+    gemm.gemm_padded.launched_flops = 0
+    t0 = time.perf_counter()
+    for M, N, K in shapes:
+        for kind in SWEEP_KINDS:
+            x, y = gemm_inputs(torch, gen, dev, M, N, K, kind)
+            f0 = gemm.gemm_padded.launched_flops
+            c, prof = ops.matmul(x, y)
+            launched = gemm.gemm_padded.launched_flops - f0
+            closed = profiled_flops(M, N, K, pick_policy(M, N, K, kind))
+            check(launched == prof.profiled_flops == closed,
+                  f"sweep ({M}, {N}, {K}) {kind}: launched {launched}, "
+                  f"profiled {prof.profiled_flops}, closed form {closed}")
+            pick = torch.randperm(M, generator=gen, device=dev)[:64]
+            want = x[pick].double() @ y.double()
+            got = c[pick].double()
+            if kind == "int8":
+                err = (got - want).abs().max().item()
+                ok = err == 0
+            else:
+                rtol, atol = ((BF16_RTOL, BF16_ROW_ATOL) if kind == "bf16"
+                              else (1e-3, 1e-4 * K / 128))
+                rms = want.pow(2).mean(dim=1, keepdim=True).sqrt()
+                lim = rtol * want.abs() + (atol * rms if kind == "bf16"
+                                           else atol)
+                err = ((got - want).abs() / lim).max().item()
+                ok = err <= 1
+            check(ok, f"sweep ({M}, {N}, {K}) {kind}: output off by "
+                  f"{err} of the limit")
+            pol = prof.policy
+            xp = ops._pad_to(x, pol.tm * pol.cm, pol.tk).contiguous()
+            yp = ops._pad_to(y, pol.tk, pol.tn * pol.cn).contiguous()
+            ms = event_ms(torch, lambda: gemm.gemm_padded(xp, yp, pol), REPS)
+            peak = PEAK_OPS_PER_S[kind] / 1e12
+            print(f"sweep ({M}, {N}, {K}) {kind}: policy {pol.name}, "
+                  f"{launched:,d} FLOPs launched == profiled == closed form "
+                  f"(overhead {prof.overhead:.2%}); kernel {ms:.4f} ms, "
+                  f"{launched / ms / 1e9:.1f} TFLOP/s executed "
+                  f"({launched / ms / 1e9 / peak:.1%} of {peak:g}), "
+                  f"{prof.theoretical_flops / ms / 1e9:.1f} useful; "
+                  f"64 rows {'max |diff| ' if kind == 'int8' else ''}"
+                  f"{err:.3g}{'' if kind == 'int8' else ' of the limit'}")
+            del x, y, c, xp, yp, want, got
+    by = dict(gemm.gemm_padded.launches_by)
+    per = 2 + REPS                      # checked call, warm-up, timed
+    want_by = {"wgmma_bf16": per * len(shapes), "wgmma_s8": per * len(shapes),
+               "simt": per * len(shapes)}
+    check(by == want_by, f"sweep launches by variant {by}, expected "
+          f"{want_by}")
+    print(f"sweep: {len(shapes)} shapes x {len(SWEEP_KINDS)} precisions, "
+          f"launches by variant {by}; {time.perf_counter() - t0:.2f} s "
+          f"({card})")
+
+
+def examples_phase(torch, dev, card: str, out: Path) -> None:
+    """The three examples on the card.  quickstart trains zamba2-7b's
+    smoke config (hd 16: both model kernels on their SIMT variants) into a
+    temporary checkpoint directory with exact flash and SSD launch counts
+    (2 a forward group and layer: the forward and remat's recompute) and
+    finite losses, then a re-run with more steps must resume from its
+    checkpoint; fleet_monitoring must flag the jobs it flags on the CPU;
+    mixed_precision_pretrain's OFU must track the MFU shift on both."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.examples import (fleet_monitoring,
+                                      mixed_precision_pretrain, quickstart)
+    from repro_torch.kernels import flash_attention, ssd_scan
+    from repro_torch.kernels import fleet_hist as fh
+    from repro_torch.models.ssm_models import _groups
+
+    fa, ssd = flash_attention.flash_attention_kernel, ssd_scan.ssd_intra_kernel
+    arch, steps, rerun = QUICKSTART
+    cfg = get_config(arch).smoke()
+    log = out / "examples.log"
+    log.unlink(missing_ok=True)
+    with tempfile.TemporaryDirectory() as ck:
+        for first, last in ((0, steps), (steps, rerun)):
+            zero_counts(fa, ssd)
+            t0 = time.perf_counter()
+            with quiet(log):
+                res = quickstart.main(["--arch", arch, "--steps", str(last),
+                                       "--ckpt-dir", ck])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = last - first
+            want = ({"wgmma_bf16": 0, "simt": 2 * n * len(_groups(cfg))},
+                    {"wgmma_bf16": 0, "simt": 2 * n * cfg.num_layers})
+            got = (dict(fa.launches_by), dict(ssd.launches_by))
+            logged = [m["step"] for m in res["metrics"]]
+            losses = [m["loss"] for m in res["metrics"]]
+            check(res["final_step"] == last
+                  and logged == list(range(first + 5, last + 1, 5))
+                  and all(math.isfinite(v) for v in losses),
+                  f"quickstart --steps {last}: final step "
+                  f"{res['final_step']}, logged steps {logged}, losses "
+                  f"{losses}")
+            check(got == want, f"quickstart --steps {last}: launches flash "
+                  f"{got[0]}, SSD {got[1]}, expected {want}")
+            times = [round(m["step_time_s"], 4) for m in res["metrics"]]
+            print(f"quickstart --arch {arch} --steps {last}"
+                  f"{' (resumed from step %d)' % first if first else ''}: "
+                  f"{n} steps in {wall:.2f} s, losses {losses}, logged step "
+                  f"times {times} s; launches flash {got[0]}, SSD {got[1]} "
+                  f"({card})")
+
+    t0 = time.perf_counter()
+    fh.ofu_bucket_hist.launches = 0
+    with quiet(log):
+        on_card = fleet_monitoring.main([])
+        torch.cuda.synchronize()
+        b1 = fh.ofu_bucket_hist.launches
+        on_cpu = fleet_monitoring.main(["--device", "cpu"])
+    check(on_card["flagged"] and on_card["flagged"] == on_cpu["flagged"],
+          f"fleet_monitoring flagged {on_card['flagged']} on the card, "
+          f"{on_cpu['flagged']} on the CPU")
+    check(b1 >= 1, "fleet_monitoring never launched the histogram kernel")
+    print(f"fleet_monitoring: flagged {on_card['flagged']} on the card and "
+          f"the CPU; collector alerts on {on_card['collector_alerted']} "
+          f"(CPU {on_cpu['collector_alerted']}), served alerts "
+          f"{on_card['served_alerts']} (CPU {on_cpu['served_alerts']}); "
+          f"histogram kernel {b1} launches; {time.perf_counter() - t0:.2f} "
+          "s for both")
+    with quiet(log):
+        r_card = mixed_precision_pretrain.main([])
+        r_cpu = mixed_precision_pretrain.main(["--device", "cpu"])
+    check(r_card > 0.9 and r_cpu > 0.9, f"mixed_precision_pretrain: "
+          f"pointwise r {r_card} on the card, {r_cpu} on the CPU")
+    print(f"mixed_precision_pretrain: pointwise r {r_card:.4f} on the card, "
+          f"{r_cpu:.4f} on the CPU")
 
 
 if __name__ == "__main__":
