@@ -153,10 +153,11 @@
    launch counts, then a crash after a checkpoint, a restore and a
    resume whose last loss equals an uninterrupted run's.
 13. Runs the paper's benchmark suite on the card at the reference's own
-   sizes (`repro_torch.benchmarks.run`'s seven modules: Fig. 1, Fig. 3,
+   sizes (`repro_torch.benchmarks.run`'s modules: Fig. 1, Fig. 3,
    Table I, Table II, Fig. 5 / Table III / §V-C over the 608-job fleet,
    §VI, and the fleet engine at 1,000 devices x 1 h, the 600-job sweep,
-   100,000 devices x 1 h and the 10k-host ingest tier; its CSV goes to
+   100,000 devices x 1 h and the 10k-host ingest tier, and the roofline,
+   which finds no dry-run records there yet; its CSV goes to
    build/bench/), with the histogram and GEMM kernels' counts set to 0
    just before and read just after.  Fails unless every module runs,
    every Fig. 1 closed-form, Fig. 3, Table I and Table II row equals the
@@ -174,6 +175,24 @@
    SSD launch counts, finite losses) and a re-run resumes from its
    checkpoint; fleet_monitoring flags the jobs it flags on the CPU;
    mixed_precision_pretrain's OFU tracks its MFU shift.
+14. (a) Holds zamba2-7b's flash and SSD calls through the ops
+   `repro_torch::flash_attention` and `repro_torch::ssd_intra` (the
+   launch as a `torch.library.custom_op`, which the dry run traces)
+   bitwise equal to the kernels' direct launch on the same inputs, and
+   prints each op's host time a call beside the direct launch's and the
+   kernel's; phases 11 and 12 have already held the ops' launch counts
+   (14 and 81 a prefill, 28 and 162 a train step).  (b) Dry-runs
+   (`launch.dryrun.run_cell`, fake CUDA tensors, nothing launched or
+   counted) the three steps phases 11 and 12 ran: its FLOPs beside
+   `step_flops`, its peak beside the card's measured peak; fails unless
+   the prefill's and the train step's lie within 15 % of the measured
+   peaks, a limit that must reject a tracker that never frees and one
+   that counts only the arguments.  (c) Prints the roofline of those
+   records against the H100 SXM data sheet (989 TFLOP/s bf16, 3.35 TB/s)
+   beside the measured times, and `benchmarks.report`'s two tables.  (d)
+   Runs the six CLIs' `--self-check` (`repro_torch.tools.*`) on the card
+   in this process, each of which must return 0, with the histogram
+   kernel's launches counted per CLI (their output goes to build/tools/).
 
 Prints the phase times and peak device memory, then one JSON line with
 every kernel's record (the histogram kernel's also carries
@@ -182,7 +201,8 @@ every kernel's record (the histogram kernel's also carries
 carry `model_launches`, their launches in phase 11's prefill, and
 `train_launches`, their launches a phase 12 train step; the histogram
 and GEMM kernels' carry `bench_launches`, their counts over phase 13's
-benchmark suite) and, last,
+benchmark suite; the histogram kernel's carries `tools_launches`, its
+launches in each of phase 14's CLI self-checks) and, last,
 `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result,
 when a phase fails, when CUDA is absent, or when run outside a checkout
 of the repository.
@@ -199,11 +219,10 @@ from pathlib import Path
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_FLOP_PER_S = 67e12        # H100 SXM, outside the tensor cores
-#: H100 SXM data-sheet peaks by input type: dense tensor-core bf16 and
-#: int8, f32 outside the tensor cores (what true-f32 work can use)
-PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": FP32_FLOP_PER_S, "int8": 1979e12}
+#: H100 SXM data-sheet rates (`repro_torch.benchmarks.roofline`, set by
+#: `main` once the checkout's package is on the path): HBM bytes/s, f32
+#: outside the tensor cores, and peaks by input type
+HBM_BYTES_PER_S = FP32_FLOP_PER_S = PEAK_OPS_PER_S = None
 EDGES = np.linspace(0.0, 1.1, 129)          # StreamingRollup's default bins
 #: far from uniform, so the kernel's guess misses and its search decides
 GEOMETRIC_EDGES = np.geomspace(1e-3, 1.1, 129)
@@ -317,6 +336,10 @@ def main() -> None:
         fail(f"{src / 'repro_torch'} not found: run from a repository "
              "checkout")
     sys.path.insert(0, str(src))
+    global HBM_BYTES_PER_S, FP32_FLOP_PER_S, PEAK_OPS_PER_S
+    from repro_torch.benchmarks.roofline import (FP32_FLOP_PER_S,
+                                                 HBM_BYTES_PER_S,
+                                                 PEAK_OPS_PER_S)
     from repro_torch.kernels import _build
     from repro_torch.kernels import fleet_hist as fh
     from repro_torch.kernels import flash_attention, gemm, ssd_scan
@@ -483,14 +506,15 @@ def main() -> None:
 
     # -- 11. the model zoo's serving path at full width --------------------
     records = {r["name"]: r for r in kernels}
-    model_launches, params = model_phase(torch, dev, card, {
+    model_launches, params, measured = model_phase(torch, dev, card, {
         name: records[name]["paths"][SERVE_MODEL]["ms"]
         for name in ("flash_attention", "ssd_intra")})
     for name, n in model_launches.items():
         records[name]["model_launches"] = n
 
     # -- 12. training at full width ------------------------------------------
-    train_launches = train_phase(torch, dev, card, params)
+    train_launches, train_measured = train_phase(torch, dev, card, params)
+    measured.update({f"train_{k}": v for k, v in train_measured.items()})
     del params
     for name, n in train_launches.items():
         records[name]["train_launches"] = n
@@ -498,6 +522,10 @@ def main() -> None:
     # -- 13. the paper's benchmark suite and examples on the card ----------
     for name, n in bench_phase(torch, dev, card).items():
         records[name]["bench_launches"] = n
+
+    # -- 14. the ops, the dry run, the roofline and the six CLIs ------------
+    records["fleet_hist"]["tools_launches"] = dryrun_phase(
+        torch, dev, card, measured)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2107,8 +2135,11 @@ def model_mutants(torch, hb: int):
 def model_phase(torch, dev, card: str, kernel_ms: dict) -> dict:
     """Phase 11: zamba2-7b at full width through the port's serving entry
     points, and three other families at published width.  Returns each
-    model kernel's launches in the full-width prefill forward, and the
-    full-width parameters (phase 12 trains them).
+    model kernel's launches in the full-width prefill forward, the
+    full-width parameters (phase 12 trains them), and the prefill's mean
+    ms, the decode loop's ms a token, and the peak device memory of the
+    prefill and of the decode loop, each after a reset (phase 14 holds
+    the dry run to them).
 
     `kernel_ms` holds phase 10's times of the flash and SSD kernels at
     zamba2-7b's width, from which the prefill's share in them is worked
@@ -2247,8 +2278,11 @@ def model_phase(torch, dev, card: str, kernel_ms: dict) -> dict:
         t = mark
     print(f"model phase 11: {time.perf_counter() - t_phase:.2f} s ("
           + ", ".join(split) + " s)")
+    measured = {"prefill_ms": ms, "prefill_peak": peaks["prefill"],
+                "decode_peak": peaks["decode"], "decode_tok_ms": tok_ms}
     return {"flash_attention": launches["flash_attention"]["wgmma_bf16"],
-            "ssd_intra": launches["ssd_intra"]["wgmma_bf16"]}, params
+            "ssd_intra": launches["ssd_intra"]["wgmma_bf16"]}, params, \
+        measured
 
 
 def profile_forward(torch, fn, ms: float) -> None:
@@ -2776,7 +2810,9 @@ def train_phase(torch, dev, card: str, params) -> dict:
     parameters, with its gradient checks (a) and (b); then (c), three
     families at published width, 2 layers, each an f32 train step
     against the CPU and a crash restart through checkpoints.  Returns
-    each model kernel's launches a full-width train step."""
+    each model kernel's launches a full-width train step, and the timed
+    steps' mean s and the steps' peak device memory less what earlier
+    phases still hold (phase 14 holds the dry run to them)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -2798,6 +2834,9 @@ def train_phase(torch, dev, card: str, params) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    # what else is held besides the parameters (earlier phases' tensors)
+    others = torch.cuda.memory_allocated(dev) - sum(
+        t.numel() * t.element_size() for t in leaf_paths(params).values())
     shape = ShapeSpec("train", TRAIN_S, 1, "train")
     before = layer_sums(torch, params)
     n_steps = 1 + TRAIN_TIMED + 1
@@ -2946,7 +2985,8 @@ def train_phase(torch, dev, card: str, params) -> dict:
           + ", ".join(split) + " s)")
     # a timed step's launches, as counted (every step's equal `want`)
     return {"flash_attention": per_step[1][0]["wgmma_bf16"],
-            "ssd_intra": per_step[1][1]["wgmma_bf16"]}
+            "ssd_intra": per_step[1][1]["wgmma_bf16"]}, \
+        {"step_s": s, "peak": peak - others}
 
 
 def train_family_check(torch, dev, model: str, S: int) -> None:
@@ -3315,6 +3355,249 @@ def examples_phase(torch, dev, card: str, out: Path) -> None:
           f"pointwise r {r_card} on the card, {r_cpu} on the CPU")
     print(f"mixed_precision_pretrain: pointwise r {r_card:.4f} on the card, "
           f"{r_cpu:.4f} on the CPU")
+
+
+
+# ---------------------------------------------------------------------------
+# 14. the kernels as ops, the dry run, its roofline, and the six CLIs
+# ---------------------------------------------------------------------------
+#: the dry run's peak memory must lie within this share of the card's
+#: measured peak, for phase 11's prefill and phase 12's train step
+DRYRUN_PEAK_TOL = 0.15
+#: the fleet tools, each run as `main(["--self-check"])` on the card
+TOOLS = ("trace_convert", "fleet_serve", "fleet_ingest", "fleet_live",
+         "fleet_correlate", "fleet_scorecard")
+#: calls timed for the ops' host overhead
+OP_CALLS = 200
+
+
+def dryrun_phase(torch, dev, card: str, measured: dict) -> dict:
+    """14. (a) B3 and B4 through their ops against their direct launch;
+    (b) the dry run of the three steps phases 11 and 12 ran, against what
+    the card measured; (c) its roofline against the H100 SXM data sheet
+    and the measured times; (d) the six CLIs' self-checks on the card.
+    Returns the histogram kernel's launches by CLI."""
+    t_phase = time.perf_counter()
+    ops_check(torch, dev)
+    marks = {"ops": time.perf_counter()}
+    recs = dryrun_check(torch, card, measured)
+    marks["dry run"] = time.perf_counter()
+    roofline_check(recs, card, measured)
+    launches = tools_check(torch, card)
+    marks["tools"] = time.perf_counter()
+    split, t = [], t_phase
+    for name, mark in marks.items():
+        split.append(f"{name} {mark - t:.2f}")
+        t = mark
+    print(f"dry-run phase 14: {time.perf_counter() - t_phase:.2f} s ("
+          + ", ".join(split) + f" s) [{card}]")
+    return launches
+
+
+def host_us(torch, fn, n: int) -> float:
+    """Host microseconds a call of fn over n calls, synchronised after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def ops_check(torch, dev) -> None:
+    """(a) zamba2-7b's flash and SSD calls (phase 10's shapes) through the
+    ops `repro_torch::flash_attention` and `repro_torch::ssd_intra`:
+    bitwise the kernels' direct launch on the same inputs; each op's
+    host time a call beside the direct launch's and the kernel's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ssd_scan
+    cfg = get_config(SERVE_MODEL)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf = torch.bfloat16
+    B, S, H, KV, hd = 1, PREFILL_S, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(bf)
+    k, v = (torch.randn((B, S, KV, hd), generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    scale = hd ** -0.5
+    nh, shd, g, ds = (cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_ngroups,
+                      cfg.ssm_state)
+    x = (torch.randn((B, S, nh, shd), generator=gen, device=dev) * 0.5).to(bf)
+    dt = torch.empty((B, S, nh), device=dev).uniform_(
+        math.log(1e-3), math.log(1e-1), generator=gen).exp_()
+    A = -torch.empty(nh, device=dev).uniform_(1.0, 16.0, generator=gen)
+    Bm, Cm = ((torch.randn((B, S, g, ds), generator=gen, device=dev) * 0.3)
+              .to(bf) for _ in range(2))
+    inputs = ops.ssd_intra_inputs(x, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+    Q = inputs[0].shape[1]
+    calls = {
+        "flash_attention": (
+            lambda: torch.ops.repro_torch.flash_attention(
+                q, k, v, True, scale, fa.variant(bf, hd)),
+            lambda: fa._launch(q, k, v, True, scale)),
+        "ssd_intra": (
+            lambda: torch.ops.repro_torch.ssd_intra(
+                *inputs, ssd_scan.variant(bf, Q, shd, ds)),
+            lambda: ssd_scan._launch(*inputs)),
+    }
+    for name, (op, direct) in calls.items():
+        got, want = op(), direct()
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"{name}: the op's output differs "
+              "from the direct launch's on the same inputs")
+        op_us, direct_us = host_us(torch, op, OP_CALLS), \
+            host_us(torch, direct, OP_CALLS)
+        ms = event_ms(torch, direct, REPS)
+        print(f"ops {name} at {SERVE_MODEL} width {tuple(got.shape)}: "
+              f"bitwise equal to the direct launch; host {op_us:.1f} us a "
+              f"call through the op, {direct_us:.1f} us direct (op "
+              f"overhead {op_us - direct_us:.1f} us), kernel "
+              f"{ms:.4f} ms")
+
+
+class _NeverFrees:
+    """Mutant tracker: a storage's bytes stay live after it dies."""
+
+    def _free(self, key, n, _ref):
+        self._refs.pop(key, None)
+
+
+class _ArgumentsOnly:
+    """Mutant tracker: counts the arguments and nothing an op allocates."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        return func(*args, **(kwargs or {}))
+
+
+def dryrun_check(torch, card: str, measured: dict) -> dict:
+    """(b) The dry run (`launch.dryrun.run_cell`, fake CUDA tensors) of
+    zamba2-7b's prefill, decode loop step and train step as phases 11 and
+    12 ran them: FLOPs beside `step_flops`, peak beside the card's
+    measured peak; prefill and train within DRYRUN_PEAK_TOL, a limit that
+    must reject a tracker that never frees and one that counts only the
+    arguments.  Returns the records by tag."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.flops.accounting import step_flops
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_intra_kernel
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.hlo_analysis import LiveBytes
+    from repro_torch.optim import adamw
+    cfg = get_config(SERVE_MODEL)
+    mutant_types = {"never-frees": _NeverFrees,
+                    "arguments-only": _ArgumentsOnly}
+    cells = {
+        "prefill": (ShapeSpec("prefill", PREFILL_S, 1, "prefill"), {},
+                    measured["prefill_peak"]),
+        "decode": (ShapeSpec("decode", DECODE_CTX, DECODE_B, "decode"), {},
+                   measured["decode_peak"]),
+        "train": (ShapeSpec("train", TRAIN_S, 1, "train"),
+                  {"opt_cfg": adamw.OptConfig(**TRAIN_OPT),
+                   "accum_steps": 1}, measured["train_peak"])}
+    recs, off = {}, {name: [] for name in mutant_types}
+    zero_counts(flash_attention_kernel, ssd_intra_kernel)
+    for name, (shape, kw, peak) in cells.items():
+        mutants = {m: type(m, (t, LiveBytes), {})()
+                   for m, t in mutant_types.items()}
+        t0 = time.perf_counter()
+        rec = run_cell(SERVE_MODEL, shape, device="cuda",
+                       trackers=tuple(mutants.values()), **kw)
+        trace_s = time.perf_counter() - t0
+        check(rec["trace_device"] == "cuda", f"dry run traced on "
+              f"{rec['trace_device']}")
+        recs[f"{SERVE_MODEL}_{name}_single"] = rec
+        flops = rec["hlo"]["flops"]
+        want = step_flops(cfg, shape, executed=True,
+                          remat=cfg.remat != "none").total_mxu
+        dry = rec["memory"]["peak_bytes"]
+        err = dry / peak - 1
+        errs = {m: t.peak / peak - 1 for m, t in mutants.items()}
+        print(f"dry run {name}: {SERVE_MODEL} {shape}: traced in "
+              f"{trace_s:.2f} s; FLOPs {flops:.4e} (count), step_flops "
+              f"{want:.4e}, ratio {flops / want:.4f}; peak {dry / 2**30:.3f} "
+              f"GiB (arguments {rec['memory']['argument_bytes'] / 2**30:.3f}"
+              f", temporaries {rec['memory']['temp_bytes'] / 2**30:.3f}) vs "
+              f"measured {peak / 2**30:.3f} GiB [{card}]: {err:+.2%}; "
+              "mutant trackers " + ", ".join(
+                  f"{m} {t.peak / 2**30:.3f} GiB ({errs[m]:+.2%})"
+                  for m, t in mutants.items()))
+        if name != "decode":
+            check(abs(err) <= DRYRUN_PEAK_TOL,
+                  f"dry run {name}: peak {dry} is {err:+.2%} from the "
+                  f"measured {peak}, past {DRYRUN_PEAK_TOL:.0%}")
+            for m, e in errs.items():
+                if abs(e) > DRYRUN_PEAK_TOL:
+                    off[m].append(name)
+    check(flash_attention_kernel.launches == 0
+          and ssd_intra_kernel.launches == 0,
+          "the fake trace raised the kernels' launch counts")
+    for m, names in off.items():
+        check(names, f"the {DRYRUN_PEAK_TOL:.0%} limit does not reject "
+              f"the {m} tracker on the prefill or the train step")
+        print(f"dry run: the {DRYRUN_PEAK_TOL:.0%} limit rejects the {m} "
+              f"tracker on: {', '.join(names)}")
+    return recs
+
+
+def roofline_check(recs: dict, card: str, measured: dict) -> None:
+    """(c) The roofline of the dry-run records against the H100 SXM data
+    sheet's peaks, `report`'s two tables, and the measured times beside
+    each bound."""
+    from repro_torch.benchmarks import report
+    from repro_torch.benchmarks.roofline import roofline_terms
+    times = {"prefill": measured["prefill_ms"] / 1e3,
+             "decode": measured["decode_tok_ms"] / 1e3,
+             "train": measured["train_step_s"]}
+    for tag, rec in recs.items():
+        name = rec["shape"]
+        t = roofline_terms(rec)
+        check(all(math.isfinite(v) for v in (t["compute_s"], t["memory_s"],
+                                              t["bound_s"])),
+              f"roofline of {tag}: {t}")
+        print(f"roofline {name}: compute {t['compute_s'] * 1e3:.3f} ms, "
+              f"memory {t['memory_s'] * 1e3:.3f} ms (H100 SXM data sheet: "
+              f"989 TFLOP/s bf16, 3.35 TB/s), bound {t['bound_s'] * 1e3:.3f}"
+              f" ms ({t['dominant'].replace('_s', '')}); measured "
+              f"{times[name] * 1e3:.3f} ms [{card}]: roofline fraction "
+              f"{t['bound_s'] / times[name]:.3f}, model FLOPs "
+              f"{t['model_flops'] / times[name] / 989e12:.3f} of peak")
+    print("report dry-run table (counts from a fake trace):")
+    print(report.dryrun_table(recs))
+    print("report roofline table (H100 SXM data-sheet bounds):")
+    print(report.roofline_table(recs))
+
+
+def tools_check(torch, card: str) -> dict:
+    """(d) The six CLIs' `--self-check` on the card, in this process;
+    each must return 0.  Returns the histogram kernel's launches by CLI
+    (their output goes to build/tools/tools.log)."""
+    import importlib
+    import os
+    from repro_torch.kernels import fleet_hist as fh
+    out = Path(__file__).resolve().parent / "build" / "tools"
+    out.mkdir(parents=True, exist_ok=True)
+    log = out / "tools.log"
+    log.unlink(missing_ok=True)
+    os.environ["BENCH_FLEET_JSON"] = str(out / "BENCH_fleet.json")
+    launches, walls = {}, {}
+    for name in TOOLS:
+        mod = importlib.import_module(f"repro_torch.tools.{name}")
+        fh.ofu_bucket_hist.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with quiet(log):
+            rc = mod.main(["--self-check"])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = fh.ofu_bucket_hist.launches
+        check(rc == 0, f"{name} --self-check returned {rc} (see {log})")
+    print("tools: --self-check on the card, each 0: " + ", ".join(
+        f"{n} {walls[n]:.2f} s ({launches[n]} B1 launches)" for n in TOOLS)
+        + f" [{card}]")
+    return launches
 
 
 if __name__ == "__main__":

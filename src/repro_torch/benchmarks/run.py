@@ -13,6 +13,8 @@ throughout.  Modules:
   production_correlation Fig. 5 / Table III / SecV-C (608-job fleet)
   operational            Fig. 6 / Fig. 7 / SecVI-C (case studies)
   fleet_engine           engine, ingest, collector, trace store, serve
+  roofline               the dry run's roofline table (reads its records,
+                         DRYRUN_DIR, against the H100 SXM data sheet)
 """
 from __future__ import annotations
 
@@ -28,11 +30,11 @@ def modules() -> list:
     from repro_torch.benchmarks import (clock_sampling, fleet_engine,
                                         operational, precision_scaling,
                                         prediction_accuracy,
-                                        production_correlation,
+                                        production_correlation, roofline,
                                         tile_quantization)
     return [tile_quantization, precision_scaling, clock_sampling,
             prediction_accuracy, production_correlation, operational,
-            fleet_engine]
+            fleet_engine, roofline]
 
 
 def main(argv=None) -> dict:
@@ -45,7 +47,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device; the card when omitted")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    # the roofline reads the dry run's records and needs no device
+    device = args.device if args.module == "roofline" \
+        else resolve_device(args.device)
     print("name,us_per_call,derived")
     failures = 0
     out = {}

@@ -8,15 +8,27 @@ design and bound), which masks the ragged edges of Sq and Sk itself, so
 it takes any sequence lengths and any hd up to 256.  bf16 with hd 64,
 96, 112, 128 or 192 runs its TMA + wgmma kernel, everything else its
 SIMT kernel (`variant`).  A CPU tensor takes the plain version,
-`ref.ref_attention`.  A CUDA call whose inputs require grad, with grad
-mode on, raises: the launch is invisible to autograd, and
-`kernels.ops.flash` carries the gradient through `kernels.grad`.
+`ref.ref_attention`; a meta tensor, which stands for a card tensor in a
+shape-only trace, takes the op's fake version.  A CUDA call whose
+inputs require grad, with grad mode on, raises: the launch is invisible
+to autograd, and `kernels.ops.flash` carries the gradient through
+`kernels.grad`.
+
+The launch is the op `torch.ops.repro_torch.flash_attention`, so a
+trace on fake CUDA tensors (`launch.hlo_analysis.analyze_step`, the dry
+run) passes through it: its fake version (also its meta kernel)
+allocates the output the launch allocates, and its FLOP formula counts
+the (query, key) pairs the kernel's tiling computes (`flash_flops`).  A
+fake call launches nothing and counts nothing.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.ref import ref_attention
 
@@ -25,6 +37,8 @@ _MAX_HD = 256                        # dims a warp holds: 8 a lane
 #: head dims of the tensor-core path: whole 64-column boxes, or 96 and
 #: 112 (phi-3-vision's, zamba2's) in two boxes zero-filled past hd
 _WGMMA_HD = (64, 96, 112, 128, 192)
+#: query rows of a wgmma block; keys of a SIMT tile
+_WGMMA_ROWS, _SIMT_KEYS = 128, 32
 
 
 def variant(dtype: torch.dtype, hd: int) -> str:
@@ -66,6 +80,58 @@ def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, scale: float, path: str) -> torch.Tensor:
+    """One launch of `path`'s kernel (`variant`) on validated CUDA inputs,
+    as an op; no count.  The TMA loads' alignment is checked here, where
+    the tensors have addresses (a fake tensor has none)."""
+    if path == "wgmma_bf16" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 path takes, for its TMA loads, "
+                         "16-byte-aligned q, k and v")
+    return _launch(q, k, v, causal, scale)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, scale, path):
+    return torch.empty_like(q)
+
+
+def flash_flops(q_shape, k_shape, causal: bool, path: str) -> int:
+    """FLOPs the kernel `path` executes: 4·hd a (query, key) pair it
+    computes, for each head.  The wgmma kernel computes whole tiles of
+    128 query rows by 128 keys (64 past hd 128), under `causal` up to the
+    tile that holds its last row's diagonal; the SIMT kernel computes, for
+    each query row, tiles of 32 keys, under `causal` up to its own
+    diagonal's tile."""
+    B, Sq, H, hd = q_shape
+    Sk = k_shape[1]
+    if path == "wgmma_bf16":
+        kv = 64 if hd > 128 else 128
+        ends = ([min(Sk, q0 + _WGMMA_ROWS) for q0 in
+                 range(0, Sq, _WGMMA_ROWS)] if causal
+                else [Sk] * math.ceil(Sq / _WGMMA_ROWS))
+        pairs = _WGMMA_ROWS * kv * sum(math.ceil(e / kv) for e in ends)
+    else:
+        t = _SIMT_KEYS
+        if causal:
+            # row i < Sk computes tiles 0..i // t; rows past Sk all of them
+            n = min(Sq, Sk)
+            full, rem = divmod(n, t)
+            tiles = t * full * (full + 1) // 2 + rem * (full + 1) \
+                + (Sq - n) * math.ceil(Sk / t)
+        else:
+            tiles = Sq * math.ceil(Sk / t)
+        pairs = t * tiles
+    return 4 * hd * B * H * pairs
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, causal, scale, path, *args,
+           **kwargs) -> int:
+    return flash_flops(q_shape, k_shape, causal, path)
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool, scale=None) -> torch.Tensor:
     """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd), H % KV == 0.
@@ -84,7 +150,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device != k.device or q.device != v.device:
         raise ValueError("q, k and v lie on different devices")
     scale = hd ** -0.5 if scale is None else scale
-    if q.device.type != "cuda":
+    if q.device.type == "cpu":
         return ref_attention(q, k, v, causal=causal, scale=scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -100,13 +166,13 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"hd = {hd}, B·KV = {B * KV}: the kernel takes "
                          f"hd <= {_MAX_HD}, B·KV <= 65535")
     path = variant(q.dtype, hd)
-    if path == "wgmma_bf16" and (H > 65535 or any(
-            t.data_ptr() % 16 for t in (q, k, v))):
-        raise ValueError("the bf16 path takes H <= 65535 and, for its TMA "
-                         "loads, 16-byte-aligned q, k and v")
+    if path == "wgmma_bf16" and H > 65535:
+        raise ValueError("the bf16 path takes H <= 65535")
     if q.numel() == 0:
         return torch.empty_like(q)
-    out = _launch(q, k, v, causal, float(scale))
+    out = flash_attention_op(q, k, v, causal, float(scale), path)
+    if is_fake(out) or out.is_meta:
+        return out
     flash_attention_kernel.launches += 1
     flash_attention_kernel.launches_by[path] += 1
     return out

@@ -7,10 +7,19 @@ the within-chunk cumsum of dA.  A CUDA tensor launches `csrc/ssd_scan.cu`
 its source notes its design and bound): bf16 at the shapes `variant`
 names runs its TMA + wgmma kernel, which computes C·Bᵀ once for
 `wgmma_heads` heads of one group, everything else its SIMT kernel.  A
-CPU tensor takes the plain version, `ref.ref_ssd_intra`.  A CUDA call
-whose inputs require grad, with grad mode on, raises: `kernels.ops.ssd`
-carries the gradient through `kernels.grad`.  The linear
-inter-chunk recurrence stays in plain PyTorch (`ops.ssd`).
+CPU tensor takes the plain version, `ref.ref_ssd_intra`; a meta tensor,
+which stands for a card tensor in a shape-only trace, takes the op's
+fake version.  A CUDA call whose inputs require grad, with grad mode
+on, raises: `kernels.ops.ssd` carries the gradient through
+`kernels.grad`.  The linear inter-chunk recurrence stays in plain
+PyTorch (`ops.ssd`).
+
+The launch is the op `torch.ops.repro_torch.ssd_intra`, so a trace on
+fake CUDA tensors (`launch.hlo_analysis.analyze_step`, the dry run)
+passes through it: its fake version (also its meta kernel) allocates
+the output the launch allocates, and its FLOP formula counts the causal
+pairs of each chunk and head (`ssd_flops`).  A fake call launches
+nothing and counts nothing.
 
 B/C arrive in their groups: head h reads group h // (nh / g), where the
 reference takes them broadcast to one copy a head (g = nh here).
@@ -20,6 +29,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.ref import ref_ssd_intra
 
@@ -83,6 +94,40 @@ def _launch(x, dt, dacs, b, c) -> torch.Tensor:
     return y
 
 
+@torch.library.custom_op("repro_torch::ssd_intra", mutates_args=())
+def ssd_intra_op(x: torch.Tensor, dt: torch.Tensor, dacs: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, path: str) -> torch.Tensor:
+    """One launch of `path`'s kernel (`variant`) on validated CUDA inputs,
+    as an op; no count.  The TMA loads' alignment is checked here, where
+    the tensors have addresses (a fake tensor has none)."""
+    if path == "wgmma_bf16" and any(t.data_ptr() % 16 for t in (x, b, c)):
+        raise ValueError("the bf16 path takes, for its TMA loads, "
+                         "16-byte-aligned x, b and c")
+    return _launch(x, dt, dacs, b, c)
+
+
+@ssd_intra_op.register_fake
+def _(x, dt, dacs, b, c, path):
+    return torch.empty_like(x)
+
+
+def ssd_flops(x_shape, b_shape) -> int:
+    """FLOPs of the intra-chunk term, as the kernels' bounds count them:
+    C·B and M·X over the causal pairs of each chunk, and M's decay and
+    scale, 2·(ds + hd) + 4 a pair, for each head (the wgmma kernel
+    computes C·Bᵀ once a block of `wgmma_heads` heads, so this overstates
+    its tensor work)."""
+    BC, Q, nh, hd = x_shape
+    ds = b_shape[-1]
+    return BC * nh * Q * (Q + 1) // 2 * (2 * (ds + hd) + 4)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_intra)
+def _flops(x_shape, dt_shape, dacs_shape, b_shape, c_shape, path, *args,
+           **kwargs) -> int:
+    return ssd_flops(x_shape, b_shape)
+
+
 def ssd_intra_kernel(x, dt, dacs, b, c, *, head_block: int = 8):
     """x: (BC, Q, nh, hd); dt/dacs: (BC, Q, nh); b/c: (BC, Q, g, ds).
 
@@ -105,7 +150,7 @@ def ssd_intra_kernel(x, dt, dacs, b, c, *, head_block: int = 8):
                          "b/c (BC, Q, g, ds) with nh % g == 0")
     if len({t.device for t in (x, dt, dacs, b, c)}) != 1:
         raise ValueError("inputs lie on different devices")
-    if x.device.type != "cuda":
+    if x.device.type == "cpu":
         return ref_ssd_intra(x, dt, dacs, b, c)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, dacs, b, c)):
@@ -124,12 +169,11 @@ def ssd_intra_kernel(x, dt, dacs, b, c, *, head_block: int = 8):
                          f"takes hd <= {_MAX_HD}, ds <= {_MAX_DS}, "
                          "nh <= 65535")
     path = variant(x.dtype, Q, hd, ds)
-    if path == "wgmma_bf16" and any(t.data_ptr() % 16 for t in (x, b, c)):
-        raise ValueError("the bf16 path takes, for its TMA loads, "
-                         "16-byte-aligned x, b and c")
     if x.numel() == 0:
         return torch.empty_like(x)
-    y = _launch(x, dt, dacs, b, c)
+    y = ssd_intra_op(x, dt, dacs, b, c, path)
+    if is_fake(y) or y.is_meta:
+        return y
     ssd_intra_kernel.launches += 1
     ssd_intra_kernel.launches_by[path] += 1
     return y

@@ -47,6 +47,7 @@ from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.peaks import DEFAULT_CHIP, ChipSpec
 from repro_torch.telemetry import tracestore
@@ -289,6 +290,34 @@ class GridSource(TelemetrySource):
                          if i1 > i0 else c)
         self._cursor_s = c + duration_s
         return sub
+
+
+class DeviceSource:
+    """Any source whose grids are handed on as float32 tensors on
+    `device`, or as host NumPy arrays when `device` is None: a
+    `Collector` then ingests a card's grids through the histogram kernel
+    (a CPU tensor's through its plain version, a NumPy grid by the host
+    path).  Everything else (cursor, cadence, `exhausted`, `seek`) is
+    the wrapped source's."""
+
+    def __init__(self, source, device=None):
+        self.source = source
+        self.device = device
+
+    def __getattr__(self, name):
+        return getattr(self.source, name)
+
+    def poll(self, duration_s: float) -> DeviceGrid:
+        g = self.source.poll(duration_s)
+        if self.device is None:
+            def move(a):
+                return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+        else:
+            def move(a):
+                return torch.as_tensor(a, dtype=torch.float32,
+                                       device=self.device)
+        return DeviceGrid(g.interval_s, move(g.tpa), move(g.clock_mhz),
+                          t0_s=g.t0_s)
 
 
 @dataclass

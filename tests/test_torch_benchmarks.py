@@ -178,7 +178,7 @@ def test_runner_lists_the_reference_modules_and_needs_a_device(capsys):
     ref_mods = {p.stem for p in (ROOT / "benchmarks").glob("*.py")
                 if "def run(" in p.read_text()}
     mine = [m.__name__.split(".")[-1] for m in port_run.modules()]
-    assert set(mine) == ref_mods - {"roofline"}
+    assert set(mine) == ref_mods
     out = port_run.main(["precision_scaling", "--device", "cpu"])
     assert list(out) == ["precision_scaling"]
     lines = capsys.readouterr().out.splitlines()
