@@ -97,23 +97,27 @@
    factor (the fleet engine's, 1, for the aligned models; 1.024 for
    whisper's).
    `ops.ssd` at mamba2-780m and at zamba2-7b width (S = 4,096, 48 heads
-   of one group, 112 heads of two); `ops.flash` (S = 4,096, causal) in
-   bf16 at llama3.2-3b (hd 128, GQA), phi-3-vision-4.2b (hd 96),
-   zamba2-7b (hd 112) and nemotron-4-340b (hd 192, GQA) width, and in f32
-   at phi-3-vision-4.2b width (the SIMT kernel).  Each is held against
-   its plain version (at full width to 2^-6 of the value plus 2^-5 of
-   the row's RMS, a limit shown to reject a zeroed output, one with a
-   diagonal tile dropped, for flash past hd 64 one that drops the second
-   64-column box and, for SSD, one with the decays of the next head of
-   the kernel's head block) and timed beside its bound and a library
-   call.  The per-variant launch counts must show every bf16 GEMM, the
-   four bf16 flash calls and both SSD calls on the bf16 wgmma kernels,
-   the f32 flash call on the SIMT one, every int8 GEMM on the s8 one and
-   the fp32 GEMMs on the SIMT one; the redesigned kernels print their
-   TFLOP/s, share of bound, factor to the library call or the former
-   kernel's time, the int8 GEMMs their transpose's time alone, and the
-   FFN GEMM's int8 and fp32 paths the SM clock and power draw under
-   load, kernel and library call.
+   of one group, 112 heads of two), in bf16 (the tensor-core kernel) and
+   in f32 (the SIMT kernel); `ops.flash` (S = 4,096, causal) in bf16 at
+   llama3.2-3b (hd 128, GQA), phi-3-vision-4.2b (hd 96), zamba2-7b (hd
+   112) and nemotron-4-340b (hd 192, GQA) width, and in f32 at
+   phi-3-vision-4.2b and zamba2-7b width (the SIMT kernel).  Each is held
+   against its plain version (at full width to 2^-6 of the value plus
+   2^-5 of the row's RMS, a limit shown to reject a zeroed output, one
+   with the kernel's own diagonal tile dropped, for flash past hd 64 one
+   that drops the second 64-column box and, for SSD, one with the decays
+   of the next head of the kernel's head block; f32 flash also to the
+   JAX tests' 1e-3) and timed beside its bound and a library call (for
+   SDPA, the CUDA kernel it ran, named by `torch.profiler`).  The
+   per-variant launch counts must show every bf16 GEMM, the four bf16
+   flash calls and both bf16 SSD calls on the bf16 wgmma kernels, the
+   two f32 flash calls and both f32 SSD calls on the SIMT ones, every
+   int8 GEMM on the s8 one and the fp32 GEMMs on the SIMT one; the
+   redesigned kernels print their TFLOP/s, share of bound, factor to the
+   library call or the former kernel's time (the f32 SIMT calls the
+   former SIMT kernels' times), the int8 GEMMs their transpose's time
+   alone, and the FFN GEMM's int8 and fp32 paths the SM clock and power
+   draw under load, kernel and library call.
 
 11. Serves zamba2-7b at full width (bf16, 6.79 B parameters from a
    seeded generator on the card) through the port's entry points:
@@ -198,7 +202,8 @@ Prints the phase times and peak device memory, then one JSON line with
 every kernel's record (the histogram kernel's also carries
 `serve_launches`, `scorecard_launches`, `table3_launches` and
 `live_launches`, its counts over phases 5-8; the flash and SSD kernels'
-carry `model_launches`, their launches in phase 11's prefill, and
+carry their other widths and working types under `paths` (" f32" for
+the SIMT kernels' f32 calls), `model_launches`, their launches in phase 11's prefill, and
 `train_launches`, their launches a phase 12 train step; the histogram
 and GEMM kernels' carry `bench_launches`, their counts over phase 13's
 benchmark suite; the histogram kernel's carries `tools_launches`, its
@@ -254,8 +259,7 @@ RECORD_GEMM = ("llama3.2-3b", (4096, 8192, 3072), "bf16")
 #: times of the kernels the TMA + wgmma paths replaced, printed beside the
 #: new ones (NVIDIA H100 80GB HBM3, 700.00 W, this script's run of the
 #: former kernels; PERF.md): the bf16 GEMMs on the wmma kernel by (model,
-#: shape), and bf16 flash on the SIMT kernel by model (llama3.2-3b's in
-#: PR 12, phi-3-vision-4.2b's in PR 15's run 12)
+#: shape)
 WMMA_GEMM_BF16_MS = {
     ("granite-3-2b", (4096, 2048, 2048)): 0.6461,
     ("granite-3-2b", (4096, 8192, 2048)): 2.4846,
@@ -263,10 +267,17 @@ WMMA_GEMM_BF16_MS = {
     ("llama3.2-3b", (4096, 8192, 3072)): 3.7678,
     ("whisper-small", (1500, 768, 768)): 0.0983,
     ("whisper-small", (1500, 3072, 768)): 0.2044}
-SIMT_FLASH_MS = {"llama3.2-3b": 15.5825, "phi-3-vision-4.2b": 19.8532}
-#: the former SIMT SSD kernel at mamba2-780m width (the same card, PR 14's
-#: run 6; PERF.md), printed beside the tensor-core kernel's time
-SIMT_SSD_MS = {"mamba2-780m": 2.2543}
+#: the former SIMT kernels' times by (model, working type), printed beside
+#: the kernel that now takes the call (the same card; PERF.md names each
+#: run): flash and SSD in bf16, since run by the tensor-core kernels, and
+#: in f32, which the register-tiled SIMT kernels now run (this script's
+#: `ssd_path` and `flash_path` on the package of commit cac39fd)
+SIMT_FLASH_MS = {("llama3.2-3b", "bf16"): 15.5825,
+                 ("phi-3-vision-4.2b", "bf16"): 19.8532,
+                 ("phi-3-vision-4.2b", "f32"): 19.4966,
+                 ("zamba2-7b", "f32"): 20.3246}
+SIMT_SSD_MS = {("mamba2-780m", "bf16"): 2.2543,
+               ("mamba2-780m", "f32"): 2.1796, ("zamba2-7b", "f32"): 2.7833}
 #: times of the former untuned SIMT kernel on the fp32 and int8 model
 #: GEMMs (NVIDIA H100 80GB HBM3, 700.00 W, this script's run of it;
 #: PERF.md), printed beside the redesigned kernels'
@@ -1626,6 +1637,10 @@ def kernel_api_paths(torch, dev, counters: dict) -> list:
     for name, path in (
             ("gemm", gemm_path), ("ssd_intra", ssd_path),
             ("ssd_intra", lambda t, d: ssd_path(t, d, "zamba2-7b")),
+            ("ssd_intra", lambda t, d: ssd_path(t, d, "mamba2-780m",
+                                                "float32")),
+            ("ssd_intra", lambda t, d: ssd_path(t, d, "zamba2-7b",
+                                                "float32")),
             ("flash_attention", flash_path)):
         for c in counters.values():
             c.launches = 0
@@ -1646,9 +1661,9 @@ def kernel_api_paths(torch, dev, counters: dict) -> list:
         rec = {"name": name, "route": "cuda", "launches": counts[name],
                **run()}
         if records and records[-1]["name"] == name:
-            # a second published width of the same kernel: under the
-            # first's record, by its model
-            records[-1].setdefault("paths", {})["zamba2-7b"] = rec
+            # another published width or working type of the same kernel:
+            # under the first's record, by its model (" f32" for f32)
+            records[-1].setdefault("paths", {})[run.key] = rec
         else:
             records.append(rec)
     print(f"peak device memory over the kernel API paths "
@@ -1849,17 +1864,19 @@ def transpose_ms(torch, y) -> float:
     return event_ms(torch, launch, REPS)
 
 
-def ssd_path(torch, dev, model: str = "mamba2-780m"):
+def ssd_path(torch, dev, model: str = "mamba2-780m", dtype_name=None):
     """The SSD path at a published width: `ops.ssd` on B = 1, S = 4,096
     with the config's heads, head dim, groups, state and chunk (mamba2-780m:
     16 chunks of 256, 48 heads of 64, one group of state 128; zamba2-7b:
-    112 heads of 64, two groups of state 64), x/B/C in the config's bf16,
+    112 heads of 64, two groups of state 64), x/B/C in the config's bf16
+    (the tensor-core kernel) or, given "float32", in f32 (the SIMT kernel),
     dt log-uniform in [1e-3, 1e-1] and A = -U(1, 16) (Mamba2's
     initialisation ranges).  The closure holds the output against the
     same entry point on CPU copies (its plain path) and the kernel against
     its plain version on the path's inputs, with `close_rows` (mutants:
-    zeroed, each chunk's diagonal 128-column tile dropped, and the decays
-    of the next head of the kernel's head block), then times the kernel."""
+    zeroed, each chunk's last diagonal tile dropped (128 columns on the
+    tensor-core kernel, 64 on the SIMT one), and the decays of the next
+    head of the kernel's head block), then times the kernel."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ssd_scan
     from repro_torch.kernels.ref import ref_ssd_intra
@@ -1867,7 +1884,7 @@ def ssd_path(torch, dev, model: str = "mamba2-780m"):
     B, S = 1, 4096
     nh, hd, g, ds = (cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_ngroups,
                      cfg.ssm_state)
-    dtype = getattr(torch, cfg.dtype)
+    dtype = getattr(torch, dtype_name or cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(1)
     x = (torch.randn((B, S, nh, hd), generator=gen, device=dev) * 0.5) \
         .to(dtype)
@@ -1882,24 +1899,29 @@ def ssd_path(torch, dev, model: str = "mamba2-780m"):
     print(f"ssd path: ops.ssd {cfg.name} ({B}, {S}, {nh}, {hd}), g {g}, ds "
           f"{ds}, chunk {cfg.ssm_chunk}, {dtype}: "
           f"{(time.perf_counter() - t0) * 1e3:.2f} ms wall")
+    short = "bf16" if dtype == torch.bfloat16 else "f32"
 
     def run() -> dict:
         y_plain = ops.ssd(*(t.cpu() for t in (x, dt, A, Bm, Cm)),
                           chunk=cfg.ssm_chunk)
-        path_err = close_rows(torch, f"ops.ssd at {cfg.name} width", y,
-                              y_plain.to(dev),
+        path_err = close_rows(torch, f"ops.ssd at {cfg.name} width, {short}",
+                              y, y_plain.to(dev),
                               {"zeroed": torch.zeros_like(y)})
+        del y_plain
         inputs = ops.ssd_intra_inputs(x, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
         BC, Q = inputs[0].shape[:2]
         path = ssd_scan.variant(dtype, Q, hd, ds)
-        hb = ssd_scan.wgmma_heads(hd, nh, g)
+        hb = ssd_scan.wgmma_heads(hd, nh, g) if path == "wgmma_bf16" \
+            else ssd_scan.simt_heads(hd)
+        tile = 128 if path == "wgmma_bf16" else ssd_scan._SIMT_ROWS
         got = ssd_scan._launch(*inputs)
         want = ref_ssd_intra(*inputs)
-        # a kernel that skips each chunk's last diagonal 128-column tile:
-        # its last 128 rows lose what their own columns give them
-        tail = ref_ssd_intra(*(t[:, -128:] for t in inputs))
+        # a kernel that skips each chunk's last diagonal tile: its last
+        # rows lose what their own columns give them
+        tail = ref_ssd_intra(*(t[:, -tile:] for t in inputs))
         dropped = want.clone()
-        dropped[:, -128:] = (want[:, -128:].float() - tail.float()).to(dtype)
+        dropped[:, -tile:] = (want[:, -tile:].float() - tail.float()) \
+            .to(dtype)
         # a kernel that shares C.B^T over its head block but takes each
         # head's decays from the next head of the block
         nxt = torch.arange(nh, device=dev)
@@ -1908,59 +1930,67 @@ def ssd_path(torch, dev, model: str = "mamba2-780m"):
         x_, dt_, dacs_, b_, c_ = inputs
         wrong = ref_ssd_intra(x_, dt_[..., nxt].contiguous(),
                               dacs_[..., nxt].contiguous(), b_, c_)
-        err = close_rows(torch, f"ssd_intra at {cfg.name} width", got, want,
+        err = close_rows(torch, f"ssd_intra at {cfg.name} width, {short}",
+                         got, want,
                          {"zeroed": torch.zeros_like(want),
                           "diagonal-tile-dropped": dropped,
                           "wrong-head": wrong})
+        del want, tail, dropped, wrong
         ms = event_ms(torch, ssd_launcher(torch, ssd_scan, inputs),
                       SHORT_REPS)
         plain_ms = event_ms(torch, lambda: ref_ssd_intra(*inputs), REPS)
         n_bytes = sum(t.numel() * t.element_size() for t in inputs) \
             + got.numel() * got.element_size()
+        pairs = BC * Q * (Q + 1) // 2
         # C.B and M.X over the causal pairs, and M's decay and scale, a
-        # head (the TPU kernel's count; the wgmma kernel computes C.B^T
-        # once a block of `hb` heads, so this overstates its tensor work)
-        n_ops = BC * nh * Q * (Q + 1) // 2 * (2 * ds + 2 * hd + 4)
-        b = bound(n_bytes, n_ops, "bf16" if dtype == torch.bfloat16
-                  else "fp32")
-        former = SIMT_SSD_MS.get(model)
+        # head (the TPU kernel's count, PERF.md's convention); a kernel
+        # that shares C.B^T needs it only once a (chunk, group)
+        per_head = pairs * nh * (2 * ds + 2 * hd + 4)
+        shared = pairs * (g * 2 * ds + nh * (2 * hd + 4))
+        # the wgmma kernel is held to the per-head count, as before; the
+        # SIMT kernel, which shares C.B^T too, to the shared one
+        n_ops = per_head if path == "wgmma_bf16" else shared
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        b = bound(n_bytes, n_ops, kind)
+        former = SIMT_SSD_MS.get((model, short))
         print(f"ssd_intra {cfg.name} ({BC}, {Q}, {nh}, {hd}, g {g}, ds {ds}) "
-              f"[{path}, {hb} heads an item]: max |diff| kernel {err:.3e}, "
-              f"path {path_err:.3e}; kernel {ms:.4f} ms "
+              f"{short} [{path}, {hb} heads an item]: max |diff| kernel "
+              f"{err:.3e}, path {path_err:.3e}; kernel {ms:.4f} ms "
               f"({n_ops / ms / 1e9:.1f} TFLOP/s as the bound counts, "
               f"{b['bound_ms'] / ms:.1%} of bound"
-              + (f"; {former / ms:.1f}x faster than the former SIMT kernel's "
-                 f"{former:.4f} ms" if former else "")
+              + (f"; former SIMT kernel {former:.4f} ms, {former / ms:.1f}x "
+                 "slower" if former else "")
               + f"), plain {plain_ms:.4f} ms, library none, bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}, "
-              f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.1f} GFLOP)")
+              f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} GFLOP; C.B^T a "
+              f"head: {per_head / 1e9:.3f} GFLOP, "
+              f"{bound(n_bytes, per_head, kind)['bound_ms']:.4f} ms; C.B^T "
+              f"once a group: {shared / 1e9:.3f} GFLOP, "
+              f"{bound(n_bytes, shared, kind)['bound_ms']:.4f} ms)")
         return {"source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                 "replaces": "src/repro/kernels/ssd_scan.py:23",
                 "variant": path, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, **b, "library_ms": None}
-    # the one intra-chunk call of the path takes the tensor-core kernel
-    run.launches_by = {"wgmma_bf16": 1, "simt": 0}
+    # the one intra-chunk call of the path takes the tensor-core kernel in
+    # bf16 and the SIMT kernel in f32
+    run.launches_by = {"wgmma_bf16": int(short == "bf16"),
+                       "simt": int(short == "f32")}
+    run.key = cfg.name + ("" if short == "bf16" else " f32")
     return run
 
 
 def ssd_launcher(torch, ssd_scan, inputs):
-    """One launch of the bf16 wgmma SSD kernel into a fixed output, with
-    the C call's arguments made once, so that CUDA events time the card
-    and not the wrapper's Python (~0.04 ms a call, near the kernel's
-    time)."""
-    x, dt, dacs, b, c = inputs
-    BC, Q, nh, hd = x.shape
-    g, ds = b.shape[2:]
-    y = torch.empty_like(x)
-    fn = ssd_scan._kernel("ssd_intra_bf16_wgmma")
-    args = (x.data_ptr(), dt.data_ptr(), dacs.data_ptr(), b.data_ptr(),
-            c.data_ptr(), y.data_ptr(), BC, Q, nh, hd, g, ds,
-            ssd_scan.wgmma_heads(hd, nh, g), x.device.index,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    """One launch of the SSD kernel the inputs take (`variant`) into a
+    fixed output, with the C call's arguments made once, so that CUDA
+    events time the card and not the wrapper's Python (~0.04 ms a call,
+    near the tensor-core kernel's time)."""
+    y = torch.empty_like(inputs[0])
+    fn, args, scratch = ssd_scan._kernel_call(*inputs, y)
 
     def launch():
         rc = fn(*args)
         check(rc == 0, f"ssd_intra launch failed: CUDA error {rc}")
+    launch.scratch = scratch            # lives as long as the launcher
     return launch
 
 
@@ -1968,7 +1998,7 @@ def ssd_launcher(torch, ssd_scan, inputs):
 #: first, then its "paths" (keyed by model, " f32" for the f32 call)
 FLASH_CALLS = (("llama3.2-3b", "bfloat16"), ("phi-3-vision-4.2b", "bfloat16"),
                ("zamba2-7b", "bfloat16"), ("nemotron-4-340b", "bfloat16"),
-               ("phi-3-vision-4.2b", "float32"))
+               ("phi-3-vision-4.2b", "float32"), ("zamba2-7b", "float32"))
 
 
 def flash_path(torch, dev):
@@ -1977,9 +2007,9 @@ def flash_path(torch, dev):
     heads of 128), phi-3-vision-4.2b (32 heads of 96), zamba2-7b's
     shared attention (32 heads of 112) and nemotron-4-340b (96 over 8
     heads of 192), all on the tensor-core kernel, and in f32 at
-    phi-3-vision-4.2b width on the SIMT kernel.  The closure holds each
-    against the plain version with `close_rows` and times kernel, plain
-    version and `scaled_dot_product_attention`."""
+    phi-3-vision-4.2b and zamba2-7b width on the SIMT kernel.  The closure
+    holds each against the plain version with `close_rows` and times
+    kernel, plain version and `scaled_dot_product_attention`."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     calls = []
@@ -2004,27 +2034,31 @@ def flash_path(torch, dev):
         return {**head, "paths": {
             cfg.name + ("" if q.dtype == torch.bfloat16 else " f32"): rec
             for (cfg, q, *_), rec in zip(calls[1:], rest)}}
-    # every bf16 call takes the tensor-core kernel, the f32 one the SIMT
-    run.launches_by = {"wgmma_bf16": 4, "simt": 1}
+    # every bf16 call takes the tensor-core kernel, the f32 ones the SIMT
+    run.launches_by = {"wgmma_bf16": 4, "simt": 2}
     return run
 
 
 def flash_record(torch, cfg, q, k, v, out) -> dict:
     """One full-width causal flash call against its plain version with
-    `close_rows` (mutants: zeroed, the last rows' diagonal 32-key tile
-    dropped and, past hd 64, q and k zeroed past column 64: a kernel that
-    drops the second box), and f32 also within the JAX tests' 1e-3;
-    timed beside the plain version, SDPA and its bound."""
+    `close_rows` (mutants: zeroed, the last rows' diagonal key tile
+    dropped (32 keys on the tensor-core kernel, the SIMT kernel's own
+    64-key tile there) and, past hd 64, q and k zeroed past column 64: a
+    kernel that drops the second box), and f32 also within the JAX tests'
+    1e-3; timed beside the plain version, SDPA (the CUDA kernel it ran
+    named from `torch.profiler`) and its bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import ref_attention
     B, S, H, hd = q.shape
+    path = fa.variant(q.dtype, hd)
     want = ref_attention(q, k, v, causal=True)
-    # a kernel that drops the last rows' diagonal 32-key tile: they see
-    # only the keys before it
+    # a kernel that drops the last rows' diagonal key tile: they see only
+    # the keys before it
+    kt = fa._SIMT_KEYS if path == "simt" else 32
     dropped = want.clone()
-    dropped[:, -32:] = ref_attention(q[:, -32:], k[:, :-32], v[:, :-32],
+    dropped[:, -kt:] = ref_attention(q[:, -kt:], k[:, :-kt], v[:, :-kt],
                                      causal=False)
     mutants = {"zeroed": torch.zeros_like(want),
                "diagonal-tile-dropped": dropped}
@@ -2047,29 +2081,51 @@ def flash_record(torch, cfg, q, k, v, out) -> dict:
                         REPS)
     torch.cuda.empty_cache()
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), REPS)
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    lib_ms = event_ms(torch, sdpa, REPS)
+    lib_kernel = sdpa_kernel(torch, sdpa)
     del qt, kt, vt
     n_ops = 4 * B * H * hd * (S * (S + 1) // 2)
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     b = bound(n_bytes, n_ops, "bf16" if q.dtype == torch.bfloat16
               else "fp32")
-    path = fa.variant(q.dtype, hd)
-    former = SIMT_FLASH_MS.get(cfg.name) if q.dtype == torch.bfloat16 \
-        else None
+    former = SIMT_FLASH_MS.get(
+        (cfg.name, "bf16" if q.dtype == torch.bfloat16 else "f32"))
     print(f"flash {cfg.name} {q.dtype} [{path}]: max |diff| "
           f"{err:.3e}; kernel {ms:.4f} ms ({n_ops / ms / 1e9:.1f} "
           f"TFLOP/s, {b['bound_ms'] / ms:.1%} of bound, "
           f"{ms / lib_ms:.2f}x SDPA"
           + (f"; former SIMT kernel {former:.4f} ms, {former / ms:.1f}x "
              "slower" if former else "")
-          + f"), plain {plain_ms:.4f} ms, library (SDPA) {lib_ms:.4f} ms, "
+          + f"), plain {plain_ms:.4f} ms, library (SDPA: {lib_kernel}) "
+          f"{lib_ms:.4f} ms, "
           f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
           f"{n_ops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB)")
     return {"source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:20",
             "variant": path, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, **b, "library_ms": lib_ms}
+            "plain_ms": plain_ms, **b, "library_ms": lib_ms,
+            "library_kernel": lib_kernel}
+
+
+def sdpa_kernel(torch, fn) -> str:
+    """The CUDA kernel that took most device time over two calls of fn
+    (`scaled_dot_product_attention`), by `torch.profiler`, in at most two
+    tries; "not measured" where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            fn()
+            torch.cuda.synchronize()
+        kernels, _ = device_times(prof.key_averages())
+        if kernels:
+            return kernels[0][2]
+    return "not measured"
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,9 @@ name.
   width (16 chunks of 256), with 2 heads an item and with 1: no stores
   of Y; no column data (dacs_j, dt_j never loaded); 2^x replaced by a
   subtraction; M replaced by S; no M·X product; no C·Bᵀ product.
+* `csrc/ssd_scan.cu`'s SIMT kernels at the same widths in f32, with
+  their `simt_heads` head block: no M·X product; no X loads; no C·Bᵀ
+  product (the first pass's); M replaced by S (no 2^x, no masks).
 * `csrc/fleet_hist.cu` on one job's grid (1,563 x 2,880) and on 64 of
   them in one call, 128 uniform bins, OFU spread over them: lanes that
   hit one cell combined by `__match_any_sync` before the shared atomic;
@@ -36,7 +39,7 @@ import subprocess
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build, fleet_hist, ops
+from repro_torch.kernels import _build, fleet_hist, ops, ssd_scan
 from repro_torch.kernels.ref import ref_attention, ref_ssd_intra
 
 OUT = _build.BUILD_DIR.parent / "ablation"
@@ -62,6 +65,21 @@ SSD_VARIANTS = {
                          smem_desc(sb + off, 16, 1024), kk > 0);""",
                   """        if (kk == 0)
           for (int q = 0; q < kTcRows / 2; ++q) sacc[q] = 1.f + off;""")],
+}
+SIMT_SSD_VARIANTS = {
+    "no M.X": [("""          for (int jj = 0; jj < kHalf; jj += 4) {
+            float mr[8][4];""", """          for (int jj = 0; jj < 0; jj += 4) {
+            float mr[8][4];""")],
+    "no X loads": [(
+        "    load_rows(Xq + (n % kRing) * kHalf * kXW, kXW, src, x_stride,",
+        "    if (n < 0)\n    load_rows(Xq + (n % kRing) * kHalf * kXW, kXW, "
+        "src, x_stride,")],
+    "no C.B^T": [("""    for (int d = 0; d < w4; d += 4) {
+      float br[4][4];""", """    for (int d = 0; d < 0; d += 4) {
+      float br[4][4];""")],
+    "M = S": [("""            if (!(diag && c0 + u > r) && j0 + c0 + u < Q)
+              mv[u] = round_to<T>(sv[u] * ex2_sfu((ai - aj[u]) * kLog2e)
+                                  * dtj[u]);""", "            mv[u] = sv[u];")],
 }
 _HIST_ADD = "          atomicAdd(&s_hist[key0[u] + k], 1);"
 HIST_VARIANTS = {
@@ -92,8 +110,9 @@ FLASH_VARIANTS = {
 FLASH_WRONG = ("P.V at n64 past hd 64",)
 
 
-def _variants(name: str, subs: dict) -> dict:
-    """{variant: path of its source}, the kernel's own first."""
+def _variants(name: str, subs: dict, tag: str = "") -> dict:
+    """{variant: path of its source}, the kernel's own first; `tag` keeps
+    two variant sets of one source apart."""
     src = (_build.CSRC / f"{name}.cu").read_text()
     out = {"kernel": _build.CSRC / f"{name}.cu"}
     for i, (what, pairs) in enumerate(subs.items()):
@@ -103,7 +122,7 @@ def _variants(name: str, subs: dict) -> dict:
                 raise RuntimeError(f"{name}.cu variant {what!r}: its text "
                                    "is no longer in the source")
             text = text.replace(old, new)
-        path = OUT / f"{name}_v{i}.cu"
+        path = OUT / f"{name}{tag}_v{i}.cu"
         path.write_text(text)
         out[what] = path
     return out
@@ -113,7 +132,7 @@ def _build_all(sources: dict) -> dict:
     """{key: ctypes library}, all nvcc processes at once."""
     procs = {}
     for key, src in sources.items():
-        lib = OUT / f"{src.stem}.so"
+        lib = OUT / f"{key[0]}_{src.stem}.so"
         procs[key] = (lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o",
              str(lib), str(src)], stdout=subprocess.PIPE,
@@ -128,19 +147,21 @@ def _build_all(sources: dict) -> dict:
 
 
 def device_ms(fn, kernel: str, n: int = 10) -> float:
-    """Mean device time of the kernels named `kernel` over n calls."""
+    """Mean device time a call of fn, over n calls after one, of the
+    kernels whose names hold `kernel` (summed where a call launches
+    several); nan where the profiler saw none in two tries."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for _ in range(2):
+        fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if kernel in e.key]
-    if not ev:
-        return float("nan")
-    return sum(e.self_device_time_total for e in ev) \
-        / sum(e.count for e in ev) / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if kernel in e.key]
+        if ev:
+            return sum(e.self_device_time_total for e in ev) / n / 1e3
+    return float("nan")
 
 
 def ssd(libs: dict) -> None:
@@ -178,6 +199,43 @@ def ssd(libs: dict) -> None:
                            f"{device_ms(lambda: fn(*args), 'ssd_bf16'):.4f}")
         print(f"ssd_intra {model} ({BC}, {Q}, {nh}, {hd}, g {g}, ds {ds}), "
               "device ms: " + "; ".join(row))
+
+
+def ssd_simt(libs: dict) -> None:
+    dev = torch.device("cuda", 0)
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    for model, (nh, g, ds) in (("mamba2-780m", (48, 1, 128)),
+                               ("zamba2-7b", (112, 2, 64))):
+        B, S, Q, hd = 1, 4096, 256, 64
+        gen = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn((B, S, nh, hd), generator=gen, device=dev) * 0.5
+        dt = torch.empty((B, S, nh), device=dev).uniform_(
+            math.log(1e-3), math.log(1e-1), generator=gen).exp_()
+        A = -torch.empty(nh, device=dev).uniform_(1.0, 16.0, generator=gen)
+        bm, cm = (torch.randn((B, S, g, ds), generator=gen, device=dev) * 0.3
+                  for _ in range(2))
+        inputs = ops.ssd_intra_inputs(x, dt, A, bm, cm, chunk=Q)
+        BC, hb = inputs[0].shape[0], ssd_scan.simt_heads(hd)
+        cb = torch.empty(ssd_scan.simt_scratch(BC, Q, g), device=dev)
+        row = []
+        for what, lib in libs.items():
+            fn = lib.ssd_intra
+            fn.argtypes, fn.restype = [i32] + [p] * 7 + [i32] * 8 + [p], i32
+            y = torch.zeros_like(inputs[0])
+            args = (0, *(t.data_ptr() for t in inputs), y.data_ptr(),
+                    cb.data_ptr(), BC, Q, nh, hd, g, ds, hb, dev.index,
+                    torch.cuda.current_stream().cuda_stream)
+            if fn(*args):
+                raise RuntimeError(f"ssd simt {what}: launch failed")
+            if what == "kernel":
+                torch.testing.assert_close(y, ref_ssd_intra(*inputs),
+                                           rtol=1e-3, atol=1e-3)
+            # both passes: ssd_cb_kernel and ssd_intra_kernel
+            row.append(f"{what} "
+                       f"{device_ms(lambda: fn(*args), 'ssd_'):.4f}")
+        print(f"ssd_intra SIMT {model} ({BC}, {Q}, {nh}, {hd}, g {g}, "
+              f"ds {ds}), f32, {hb} heads a block, device ms: "
+              + "; ".join(row))
 
 
 def hist(libs: dict) -> None:
@@ -263,12 +321,15 @@ def main() -> None:
                          text=True, timeout=60)
     print(smi.stdout.strip())
     ssd_src = _variants("ssd_scan", SSD_VARIANTS)
+    simt_src = _variants("ssd_scan", SIMT_SSD_VARIANTS, "_simt")
     hist_src = _variants("fleet_hist", HIST_VARIANTS)
     flash_src = _variants("flash_attention", FLASH_VARIANTS)
     libs = _build_all({**{("ssd", k): v for k, v in ssd_src.items()},
+                       **{("simt", k): v for k, v in simt_src.items()},
                        **{("hist", k): v for k, v in hist_src.items()},
                        **{("flash", k): v for k, v in flash_src.items()}})
     ssd({k: v for (kind, k), v in libs.items() if kind == "ssd"})
+    ssd_simt({k: v for (kind, k), v in libs.items() if kind == "simt"})
     hist({k: v for (kind, k), v in libs.items() if kind == "hist"})
     flash({k: v for (kind, k), v in libs.items() if kind == "flash"})
 

@@ -33,11 +33,16 @@
 //     stored; hd 192 (nemotron-4-340b's) takes three, with tiles of 64
 //     keys so that the ring fits the block's shared memory.
 //   * everything else (f32; bf16 with another hd <= 256) (flash_kernel):
-//     one warp owns one (query i, head h) row with its m, l and acc
-//     (hd / 32 dims a lane, 4 or 8 a lane by the kernel's head-dim class)
-//     in registers; the warps of a block share one kv head, stage tiles
-//     of 32 keys and values in shared memory sized by hd, and score one
-//     key per lane with a warp reduction, in f32 on the SM's cores.
+//     register-tiled on the SM's f32 cores (f32 stays true f32).  A block
+//     of 256 threads owns 128 query rows of one head (64 past hd 128) and
+//     walks 64-key tiles with Q, one K and one V tile in shared memory;
+//     a thread computes an 8 x 4 (4 x 4) piece of S = Q·Kᵀ and keeps an
+//     8 (4) row piece of O in registers, every product reading 4-wide
+//     vectors along its sum, so that a load feeds 4 FMAs a row or key it
+//     meets; a row's max over a tile takes 4 shuffles among its 16
+//     threads.  cp.async brings V_t while S is computed and K_t+1 while
+//     the softmax and P·V_t run.  Head dims are planned in classes of
+//     32 (hd rounded up; the columns past hd are zeros).
 //
 // Both mask keys past Sk (the ragged tail that the JAX wrapper sends to
 // its reference instead) like any other masked score, so any Sk runs
@@ -50,7 +55,9 @@
 // TFLOP/s, against 67 MB of q, k, v and out (0.020 ms at 3.35 TB/s); at
 // nemotron-4-340b's (H = 96, KV = 8, hd = 192) 619 GFLOP, 0.626 ms,
 // against 327 MB.  The padded columns of hd 96 and 112 cost P·V a third
-// and a seventh more tensor work than the bound counts.
+// and a seventh more tensor work than the bound counts.  In f32 at
+// phi-3-vision-4.2b width (H = KV = 32, hd = 96) the SIMT kernel must do
+// 103 GFLOP, 1.539 ms at 67 TFLOP/s on the SM's f32 cores.
 
 #include <cstdint>
 
@@ -59,147 +66,9 @@
 
 namespace {
 
-constexpr int kWarps = 16;             // (query, head) rows of a block
-constexpr int kKeys = 32;              // keys of a tile: one a lane
 constexpr int kMaxHd = 256;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kAll = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kAll, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kAll, v, o));
-  return v;
-}
-
-// grid: x over blocks of kWarps rows (row = i * G + g), y over B * KV;
-// kDims dims a lane (hd <= 32 * kDims); dynamic shared memory holds a
-// tile of kKeys keys and one of values, kKeys * hd floats each
-template <typename T, int kDims>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-             int H, int KV, int hd, float scale, int causal) {
-  extern __shared__ float kv_tiles[];
-  float* Ks = kv_tiles;
-  float* Vs = kv_tiles + kKeys * hd;
-  const int G = H / KV;
-  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long n_rows = static_cast<long long>(Sq) * G;
-  const long long row = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  const bool active = row < n_rows;
-  const int i = static_cast<int>(row / G);
-  const int h = kvh * G + static_cast<int>(row % G);
-
-  float qr[kDims], acc[kDims];
-#pragma unroll
-  for (int t = 0; t < kDims; ++t) {
-    const int d = lane + 32 * t;
-    qr[t] = (active && d < hd)
-                ? to_float(q[((static_cast<long long>(b) * Sq + i) * H + h) * hd + d])
-                : 0.f;
-    acc[t] = 0.f;
-  }
-  float m = kNegInf, l = 0.f;
-
-  // keys the block needs: all of them, or up to its last row's diagonal
-  const long long last = min(n_rows, static_cast<long long>(blockIdx.x + 1) * kWarps) - 1;
-  const int n_keys = causal ? min(Sk, static_cast<int>(last / G) + 1) : Sk;
-  for (int j0 = 0; j0 < n_keys; j0 += kKeys) {
-    __syncthreads();                   // the last tile is consumed
-    for (int e = threadIdx.x; e < kKeys * hd; e += kWarps * 32) {
-      const int j = j0 + e / hd;
-      const long long src = ((static_cast<long long>(b) * Sk + j) * KV + kvh) * hd + e % hd;
-      Ks[e] = j < Sk ? to_float(k[src]) : 0.f;
-      Vs[e] = j < Sk ? to_float(v[src]) : 0.f;
-    }
-    __syncthreads();
-    if (!active || (causal && j0 > i)) continue;   // warp-uniform
-
-    float s = kNegInf;                 // lane jj's score: key j0 + jj
-#pragma unroll 4
-    for (int jj = 0; jj < kKeys; ++jj) {
-      float part = 0.f;
-#pragma unroll
-      for (int t = 0; t < kDims; ++t) {
-        const int d = lane + 32 * t;
-        if (d < hd) part += qr[t] * Ks[jj * hd + d];
-      }
-      part = warp_sum(part);
-      if (lane == jj) s = part * scale;
-    }
-    const int j = j0 + lane;
-    if (j >= Sk || (causal && j > i)) s = kNegInf;
-
-    const float m_new = fmaxf(m, warp_max(s));
-    const float p = expf(s - m_new);
-    const float corr = expf(m - m_new);
-    l = l * corr + warp_sum(p);
-    const float pv = round_to<T>(p);
-#pragma unroll
-    for (int t = 0; t < kDims; ++t) acc[t] *= corr;
-#pragma unroll 4
-    for (int jj = 0; jj < kKeys; ++jj) {
-      const float pj = __shfl_sync(kAll, pv, jj);
-#pragma unroll
-      for (int t = 0; t < kDims; ++t) {
-        const int d = lane + 32 * t;
-        if (d < hd) acc[t] += pj * Vs[jj * hd + d];
-      }
-    }
-    m = m_new;
-  }
-
-  if (!active) return;
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-#pragma unroll
-  for (int t = 0; t < kDims; ++t) {
-    const int d = lane + 32 * t;
-    if (d < hd)
-      out[((static_cast<long long>(b) * Sq + i) * H + h) * hd + d] =
-          from_float<T>(acc[t] * inv);
-  }
-}
-
-template <typename T, int kDims>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int KV, int hd, float scale, int causal,
-           cudaStream_t stream) {
-  const long long n_rows = static_cast<long long>(Sq) * (H / KV);
-  const dim3 grid(static_cast<unsigned>((n_rows + kWarps - 1) / kWarps),
-                  B * KV);
-  const int smem = 2 * kKeys * hd * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {              // hd > 192: a block must opt in
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<T, kDims>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  flash_kernel<T, kDims><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, KV, hd,
-      scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The SIMT kernel of q's head-dim class: 4 dims a lane up to hd 128, so
-// the common head dims keep their registers, else 8.
-template <typename T>
-int launch_simt(const void* q, const void* k, const void* v, void* out,
-                int B, int Sq, int Sk, int H, int KV, int hd, float scale,
-                int causal, cudaStream_t stream) {
-  return hd <= 128
-             ? launch<T, 4>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale,
-                            causal, stream)
-             : launch<T, 8>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale,
-                            causal, stream);
-}
 
 // ---- bf16, hd 64, 96, 112, 128 or 192: TMA + wgmma ---------------------
 constexpr int kRows = 128;              // query rows of a block
@@ -439,6 +308,263 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV,
       scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- everything else: the register-tiled SIMT kernel -----------------
+constexpr int kSimtThreads = 256;      // 16 x 16 threads
+constexpr int kSimtKeys = 64;          // keys of a tile
+
+// The tile plan of a padded head dim DP (hd rounded up to 32; the columns
+// past hd are zeros in shared memory): query rows of a block (a thread
+// owns kRT of them), the width and count of the column vectors of O a
+// thread owns, and the rows of the Q, K and V tiles in shared memory in
+// T (f32 or bf16), each padded by 16 bytes so that the rows a warp reads
+// at one column lie in distinct banks.  Past DP 128, 64 rows, so that Q,
+// K, V and P fit 227 KB and O 64 registers a thread.
+template <typename T, int DP>
+struct SimtPlan {
+  static constexpr int kRows = DP > 128 ? 64 : 128;
+  static constexpr int kRT = kRows / 16;
+  static constexpr int kVW = DP % 64 == 0 ? 4 : 2;
+  static constexpr int kNV = DP / (16 * kVW);
+  static constexpr int kLd = DP + 16 / static_cast<int>(sizeof(T));
+  static constexpr int kLp = kSimtKeys + 4;         // P, f32
+  static constexpr int kSmem =
+      (kRows + 2 * kSimtKeys) * kLd * static_cast<int>(sizeof(T))
+      + kRows * kLp * 4;
+};
+
+// One block owns kRows query rows of one head h of one batch b and walks
+// the 64-key tiles of kv head h / G up to its last row's diagonal (all of
+// them when not causal), with Q, one K tile and one V tile in shared
+// memory: V_t arrives by cp.async while S = Q·K_tᵀ is computed, K_t+1
+// while the softmax and O += P·V_t are.  Thread (ty, tx) owns rows
+// ty + 16i (i < kRT) and, of S, keys tx + 16c (c < 4), of O, columns
+// kVW·tx + 16·kVW·v + w: both products read 4-wide vectors along their
+// sum (Q and K rows along d, P rows along the keys, V rows along d), so
+// each vector feeds 4 FMAs a row or key it meets.  The 16 threads of a
+// row are 16 lanes of one warp: its max over a tile takes 4 shuffles,
+// its sum only at the end.  Scores in the log2 domain; keys past Sk and
+// above the diagonal -1e30 in registers, on the tiles that reach them.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kSimtThreads, 1)
+flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
+             int H, int KV, int hd, float scale_log2, int causal, int vec) {
+  using P = SimtPlan<T, DP>;
+  constexpr int kRows = P::kRows, kRT = P::kRT, kVW = P::kVW, kNV = P::kNV;
+  constexpr int kLd = P::kLd, kLp = P::kLp;
+  extern __shared__ __align__(16) uint8_t simt_smem[];
+  T* Qs = reinterpret_cast<T*>(simt_smem);             // [kRows][kLd]
+  T* Ks = Qs + kRows * kLd;                            // [64][kLd]
+  T* Vs = Ks + kSimtKeys * kLd;                        // [64][kLd]
+  float* Ps = reinterpret_cast<float*>(Vs + kSimtKeys * kLd);  // [kRows][kLp]
+
+  const int n_qt = (Sq + kRows - 1) / kRows;
+  const int qi = blockIdx.x / H, h = blockIdx.x % H;
+  const int qt = causal ? n_qt - 1 - qi : qi;          // longest first
+  const int b = blockIdx.y, kvh = h / (H / KV);
+  const int q0 = qt * kRows;
+  const int n_keys = causal ? min(Sk, q0 + kRows) : Sk;
+  const int n_kt = (n_keys + kSimtKeys - 1) / kSimtKeys;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ty = warp * 2 + lane / 16, tx = lane % 16;
+  const int hd4 = (hd + 3) / 4 * 4;
+
+  const long long q_stride = static_cast<long long>(H) * hd;
+  const long long kv_stride = static_cast<long long>(KV) * hd;
+  const T* qg = q + (static_cast<long long>(b) * Sq + q0) * q_stride
+                + static_cast<long long>(h) * hd;
+  const long long kv0 = static_cast<long long>(b) * Sk * kv_stride
+                        + static_cast<long long>(kvh) * hd;
+
+  // the columns past hd of every Q, K and V row stay zero
+  for (int e = threadIdx.x; e < (kRows + 2 * kSimtKeys) * (DP - hd);
+       e += kSimtThreads) {
+    const int r = e / (DP - hd);
+    Qs[r * kLd + hd + e % (DP - hd)] = T(0.f);
+  }
+  load_rows(Qs, kLd, qg, q_stride, kRows, Sq - q0, hd, vec, threadIdx.x,
+            kSimtThreads);
+  load_rows(Ks, kLd, k + kv0, kv_stride, kSimtKeys, Sk, hd, vec, threadIdx.x,
+            kSimtThreads);
+  cp_async_commit();
+
+  float o[kRT][kNV][kVW];
+  float m_run[kRT], l_run[kRT];
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    m_run[i] = kNegInf;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int nv = 0; nv < kNV; ++nv)
+#pragma unroll
+      for (int w = 0; w < kVW; ++w) o[i][nv][w] = 0.f;
+  }
+
+  for (int t = 0; t < n_kt; ++t) {
+    const int j0 = t * kSimtKeys;
+    cp_async_wait<0>();
+    __syncthreads();                   // K_t landed; V and P are free
+    load_rows(Vs, kLd, v + kv0 + j0 * kv_stride, kv_stride, kSimtKeys,
+              Sk - j0, hd, vec, threadIdx.x, kSimtThreads);
+    cp_async_commit();
+
+    float s[kRT][4];
+#pragma unroll
+    for (int i = 0; i < kRT; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < hd4; d += 4) {   // the zero columns past hd4 add 0
+      float kr[4][4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ld_vec(kr[c], Ks + (tx + 16 * c) * kLd + d);
+#pragma unroll
+      for (int i = 0; i < kRT; ++i) {
+        float qr[4];
+        ld_vec(qr, Qs + (ty + 16 * i) * kLd + d);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) s[i][c] = fmaf(qr[u], kr[c][u], s[i][c]);
+      }
+    }
+    __syncthreads();                   // K_t is consumed
+    if (t + 1 < n_kt)
+      load_rows(Ks, kLd, k + kv0 + (j0 + kSimtKeys) * kv_stride, kv_stride,
+                kSimtKeys, Sk - j0 - kSimtKeys, hd, vec, threadIdx.x,
+                kSimtThreads);
+    cp_async_commit();
+
+    // only the tiles that reach past Sk or above a row's diagonal mask
+    const bool edge = j0 + kSimtKeys > Sk
+                      || (causal && j0 + kSimtKeys - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < kRT; ++i) {
+      const int r = q0 + ty + 16 * i;
+      float mx = m_run[i];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = j0 + tx + 16 * c;
+        float x = s[i][c] * scale_log2;
+        if (edge && (j >= Sk || (causal && j > r))) x = kNegInf;
+        s[i][c] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kAll, mx, off));
+      const float corr = ex2_sfu(m_run[i] - mx);
+      m_run[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = ex2_sfu(s[i][c] - mx);
+        sum += p;
+        Ps[(ty + 16 * i) * kLp + tx + 16 * c] = round_to<T>(p);
+      }
+      l_run[i] = l_run[i] * corr + sum;
+#pragma unroll
+      for (int nv = 0; nv < kNV; ++nv)
+#pragma unroll
+        for (int w = 0; w < kVW; ++w) o[i][nv][w] *= corr;
+    }
+    cp_async_wait<1>();
+    __syncthreads();                   // V_t landed; P is whole
+
+#pragma unroll 2
+    for (int jj = 0; jj < kSimtKeys; jj += 4) {
+      float pr[kRT][4];
+#pragma unroll
+      for (int i = 0; i < kRT; ++i)
+        ld_vec(pr[i], Ps + (ty + 16 * i) * kLp + jj);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float vr[kNV][kVW];
+#pragma unroll
+        for (int nv = 0; nv < kNV; ++nv)
+          ld_vec(vr[nv], Vs + (jj + u) * kLd + kVW * tx + 16 * kVW * nv);
+#pragma unroll
+        for (int i = 0; i < kRT; ++i)
+#pragma unroll
+          for (int nv = 0; nv < kNV; ++nv)
+#pragma unroll
+            for (int w = 0; w < kVW; ++w)
+              o[i][nv][w] = fmaf(pr[i][u], vr[nv][w], o[i][nv][w]);
+      }
+    }
+  }
+
+  // the row sums over the 16 threads of a row, then one rounding
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    float l = l_run[i];
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) l += __shfl_xor_sync(kAll, l, off);
+    const int r = q0 + ty + 16 * i;
+    if (r >= Sq) continue;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    T* orow = out + (static_cast<long long>(b) * Sq + r) * q_stride
+              + static_cast<long long>(h) * hd;
+#pragma unroll
+    for (int nv = 0; nv < kNV; ++nv)
+#pragma unroll
+      for (int w = 0; w < kVW; ++w) {
+        const int d = kVW * tx + 16 * kVW * nv + w;
+        if (d < hd) orow[d] = from_float<T>(o[i][nv][w] * inv);
+      }
+  }
+}
+
+template <typename T, int DP>
+int launch_simt_dp(const void* q, const void* k, const void* v, void* out,
+                   int B, int Sq, int Sk, int H, int KV, int hd, float scale,
+                   int causal, cudaStream_t stream) {
+  using P = SimtPlan<T, DP>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      P::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // 16-byte copies where every row of q, k and v starts 16-byte aligned
+  const bool vec = (hd * sizeof(T)) % 16 == 0
+                   && (reinterpret_cast<uintptr_t>(q)
+                       | reinterpret_cast<uintptr_t>(k)
+                       | reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  const long long n_x = static_cast<long long>((Sq + P::kRows - 1) / P::kRows)
+                        * H;
+  if (n_x > 0x7fffffffLL || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(n_x), B);
+  flash_kernel<T, DP><<<grid, kSimtThreads, P::kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, KV, hd,
+      scale * kLog2e, causal, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The SIMT kernel of q's head-dim class: hd rounded up to 32.
+template <typename T>
+int launch_simt(const void* q, const void* k, const void* v, void* out,
+                int B, int Sq, int Sk, int H, int KV, int hd, float scale,
+                int causal, cudaStream_t stream) {
+#define FLASH_SIMT_DP(DP)                                                 \
+  case DP:                                                                \
+    return launch_simt_dp<T, DP>(q, k, v, out, B, Sq, Sk, H, KV, hd,      \
+                                 scale, causal, stream);
+  switch ((hd + 31) / 32 * 32) {
+    FLASH_SIMT_DP(32)
+    FLASH_SIMT_DP(64)
+    FLASH_SIMT_DP(96)
+    FLASH_SIMT_DP(128)
+    FLASH_SIMT_DP(160)
+    FLASH_SIMT_DP(192)
+    FLASH_SIMT_DP(224)
+    FLASH_SIMT_DP(256)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FLASH_SIMT_DP
 }
 
 }  // namespace

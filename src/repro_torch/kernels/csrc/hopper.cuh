@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels of
 // the kernel API (gemm.cu's bf16 and int8 paths, flash_attention.cu's
 // bf16 path): raw PTX for mbarriers, TMA tensor loads, wgmma shared-memory
-// descriptors and products, register rebalancing and cp.async, plus a
+// descriptors and products, register rebalancing and cp.async, the tile
+// loads and widening reads of the register-tiled SIMT kernels, plus a
 // host function that encodes a CUtensorMap through the driver entry point
 // (nothing here links libcuda).
 //
@@ -385,6 +386,82 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- tiles of the SIMT kernels ----------------------------------------
+// Rows r < n_rows of `width` elements, row r at src + r * stride in global
+// memory, into shared memory at dst + r * ld; rows r >= valid are zeros;
+// thread `tid` of the `nthr` that share the copy.  vec: every row starts
+// 16-byte aligned and width * sizeof(T) is a multiple of 16, so each row
+// moves as 16-byte cp.async copies (zero fill past `valid`); else element
+// by element, synchronously.  Either way the tile is whole after the
+// threads' cp_async_wait and a barrier over them.
+template <typename T>
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
+                                          long long stride, int n_rows,
+                                          int valid, int width, bool vec,
+                                          int tid, int nthr) {
+  if (vec) {
+    constexpr int kE = 16 / sizeof(T);
+    const int per_row = width / kE;
+    for (int e = tid; e < n_rows * per_row; e += nthr) {
+      const int r = e / per_row, col = (e - r * per_row) * kE;
+      const bool in = r < valid;
+      cp_async16(dst + r * ld + col, in ? src + r * stride + col : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < n_rows * width; e += nthr) {
+      const int r = e / width, col = e - r * width;
+      dst[r * ld + col] = r < valid ? src[r * stride + col] : T(0.f);
+    }
+  }
+}
+
+// 2^x on the SFU (ex2.approx.ftz: |rel err| < 2^-22, results under 2^-126
+// flushed to 0).
+__device__ __forceinline__ float ex2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Waits at a named barrier (1-15; 0 is __syncthreads') for `n` threads,
+// whole warps of the block.
+__device__ __forceinline__ void named_barrier(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// N consecutive elements (N = 1, 2 or 4, the address aligned to N of
+// them) of a tile in shared memory, widened to f32: one load.
+template <int N>
+__device__ __forceinline__ void ld_vec(float (&o)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    o[0] = v.x, o[1] = v.y;
+  } else {
+    o[0] = *p;
+  }
+}
+template <int N>
+__device__ __forceinline__ void ld_vec(float (&o)[N],
+                                       const __nv_bfloat16* p) {
+  // a bf16 is the high half of its f32
+  if constexpr (N == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    o[0] = __uint_as_float(v.x << 16);
+    o[1] = __uint_as_float(v.x & 0xffff0000u);
+    o[2] = __uint_as_float(v.y << 16);
+    o[3] = __uint_as_float(v.y & 0xffff0000u);
+  } else if constexpr (N == 2) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+    o[0] = __uint_as_float(v << 16), o[1] = __uint_as_float(v & 0xffff0000u);
+  } else {
+    o[0] = __bfloat162float(*p);
+  }
 }
 
 // ---- host side --------------------------------------------------------

@@ -46,13 +46,18 @@
 //     227 KB, else 1; C and column data double-buffered where they fit
 //     (mamba2-780m: 2 stages, 2 buffers, 201 KB; ds 256: 1 stage).
 //   * everything else (f32; bf16 at other shapes, hd <= 128, ds <= 256)
-//     (ssd_intra_kernel): its (head-block, Q, Q) f32 tile (Q = 256:
-//     256 KiB a head) does not fit a block's shared memory, so a block
-//     owns one strip of 64 rows i of one (z, h) and walks the columns
-//     j <= i in steps of 64: it computes the 64 x 64 tile of M into
-//     shared memory, then adds M.X into per-thread f32 accumulators, on
-//     the SM's cores.  Column steps wholly above the strip's diagonal
-//     are skipped.
+//     (ssd_cb_kernel, ssd_intra_kernel): register-tiled on the SM's f32
+//     cores (f32 stays true f32), in two passes.  The first computes
+//     S = C.B^T once a (chunk, group) for every 64 x 64 tile at or below
+//     the diagonal into an f32 scratch, 4 x 4 values a thread.  In the
+//     second a block of 256 threads owns a work item (chunk z, a strip of
+//     64 rows i, a block of up to 16 heads of one group up to hd 32, else
+//     4) and walks the tiles j <= i: each quarter of the block takes a
+//     quarter of the heads, forms each one's M for its own rows from the
+//     tile's S and adds M.X_h to that head's Y, 8 x 8 values a thread in
+//     registers, so that each 16-byte load of M or X feeds 16 FMAs.  Column
+//     tiles wholly above the strip's diagonal are skipped; X tiles arrive
+//     by cp.async three steps ahead of their product.
 //
 // Where the TPU kernel takes B and C broadcast to one copy a head, both
 // kernels read each head's group in place (g = nh is the TPU layout).
@@ -61,7 +66,10 @@
 // nh = 48, hd = 64, g = 1, ds = 128, bf16) the inputs and output are
 // ~54 MB: 0.016 ms at 3.35 TB/s.  The tensor work is ~4.8 GFLOP of C.B^T
 // a head block and ~4.8 GFLOP of M.X over whole 128 x 128 tiles (0.010
-// ms at 989 TFLOP/s bf16), and 25 M exps over the causal pairs.
+// ms at 989 TFLOP/s bf16), and 25 M exps over the causal pairs.  In f32
+// the bound is operations: C.B^T once a (chunk, group) over the causal
+// pairs (0.135 GFLOP) and M and M.X a head (3.335 GFLOP), 0.0518 ms at 67
+// TFLOP/s, against 106 MB (0.032 ms).
 
 #include <cstdint>
 
@@ -70,124 +78,7 @@
 
 namespace {
 
-constexpr int kRows = 64;        // rows i of a block's strip
-constexpr int kCols = 64;        // columns j of one step
-constexpr int kThreads = 256;
 constexpr int kMaxHd = 128;
-constexpr int kMaxOut = kRows * kMaxHd / kThreads;   // accumulators a thread
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_intra_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                 const float* __restrict__ dacs, const T* __restrict__ b,
-                 const T* __restrict__ c, T* __restrict__ y, int Q, int nh,
-                 int hd, int g, int ds) {
-  extern __shared__ float smem[];
-  const int lds = ds | 1;                  // odd stride: lanes hit distinct banks
-  float* Cs = smem;                        // [kRows][lds]
-  float* Bs = Cs + kRows * lds;            // [kCols][lds]
-  float* Xs = Bs + kCols * lds;            // [kCols][hd]
-  float* Ms = Xs + kCols * hd;             // [kRows][kCols + 1]
-  float* dacs_i = Ms + kRows * (kCols + 1);  // [kRows]
-  float* dacs_j = dacs_i + kRows;          // [kCols]
-  float* dt_j = dacs_j + kCols;            // [kCols]
-
-  const long long z = blockIdx.x;
-  const int h = blockIdx.y;
-  const int i0 = blockIdx.z * kRows;
-  const int rows = min(kRows, Q - i0);
-  // element (z, q, h) of a (BC, Q, nh[, w]) tensor
-  auto at = [&](int q, int w) { return ((z * Q + q) * nh + h) * w; };
-  // row (z, q) of head h's group in a (BC, Q, g, ds) tensor
-  const int grp = h / (nh / g);
-  auto at_grp = [&](int q) { return ((z * Q + q) * g + grp) * ds; };
-
-  for (int e = threadIdx.x; e < kRows * ds; e += kThreads) {
-    const int r = e / ds, d = e % ds;
-    Cs[r * lds + d] = r < rows ? to_float(c[at_grp(i0 + r) + d]) : 0.f;
-  }
-  for (int r = threadIdx.x; r < kRows; r += kThreads)
-    dacs_i[r] = r < rows ? dacs[at(i0 + r, 1)] : 0.f;
-
-  float acc[kMaxOut];
-#pragma unroll
-  for (int o = 0; o < kMaxOut; ++o) acc[o] = 0.f;
-
-  const int j_end = i0 + rows;             // causal: j <= the strip's last i
-  for (int j0 = 0; j0 < j_end; j0 += kCols) {
-    const int cols = min(kCols, Q - j0);
-    __syncthreads();                       // the last step is done with the tiles
-    for (int e = threadIdx.x; e < kCols * ds; e += kThreads) {
-      const int r = e / ds, d = e % ds;
-      Bs[r * lds + d] = r < cols ? to_float(b[at_grp(j0 + r) + d]) : 0.f;
-    }
-    for (int e = threadIdx.x; e < kCols * hd; e += kThreads) {
-      const int r = e / hd;
-      Xs[e] = r < cols ? to_float(x[at(j0 + r, hd) + e % hd]) : 0.f;
-    }
-    for (int r = threadIdx.x; r < kCols; r += kThreads) {
-      dacs_j[r] = r < cols ? dacs[at(j0 + r, 1)] : 0.f;
-      dt_j[r] = r < cols ? dt[at(j0 + r, 1)] : 0.f;
-    }
-    __syncthreads();
-
-    for (int e = threadIdx.x; e < kRows * kCols; e += kThreads) {
-      const int r = e / kCols, cc = e % kCols;
-      float m = 0.f;
-      if (r < rows && cc < cols && i0 + r >= j0 + cc) {
-        const float* cr = Cs + r * lds;
-        const float* br = Bs + cc * lds;
-        float cb = 0.f;
-        for (int d = 0; d < ds; ++d) cb += cr[d] * br[d];
-        m = round_to<T>(cb * expf(dacs_i[r] - dacs_j[cc]) * dt_j[cc]);
-      }
-      Ms[r * (kCols + 1) + cc] = m;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int o = 0; o < kMaxOut; ++o) {
-      const int e = threadIdx.x + o * kThreads;
-      if (e < kRows * hd) {
-        const float* mr = Ms + (e / hd) * (kCols + 1);
-        const float* xc = Xs + e % hd;
-        float s = 0.f;
-        for (int cc = 0; cc < kCols; ++cc) s += mr[cc] * xc[cc * hd];
-        acc[o] += s;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int o = 0; o < kMaxOut; ++o) {
-    const int e = threadIdx.x + o * kThreads;
-    if (e < kRows * hd && e / hd < rows)
-      y[at(i0 + e / hd, hd) + e % hd] = from_float<T>(acc[o]);
-  }
-}
-
-size_t smem_bytes(int hd, int ds) {
-  const int lds = ds | 1;
-  return sizeof(float) * (static_cast<size_t>(kRows + kCols) * lds
-                          + kCols * hd + kRows * (kCols + 1) + kRows
-                          + 2 * kCols);
-}
-
-template <typename T>
-int launch(const void* x, const float* dt, const float* dacs, const void* b,
-           const void* c, void* y, int BC, int Q, int nh, int hd, int g,
-           int ds, cudaStream_t stream) {
-  const size_t smem = smem_bytes(hd, ds);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_intra_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(BC, nh, (Q + kRows - 1) / kRows);
-  ssd_intra_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), dt, dacs, static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<T*>(y), Q, nh, hd, g, ds);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---- bf16, hd 64 or 128: TMA + wgmma ---------------------------------
 constexpr int kTcRows = 128;            // rows of a strip, columns of a tile
@@ -556,28 +447,443 @@ int launch_tc(const void* x, const float* dt, const float* dacs,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- everything else: the register-tiled SIMT kernels ----------------
+constexpr int kSimtRows = 64;     // rows i of a strip, columns j of a tile
+constexpr int kSimtThreads = 256; // 4 quarters of 64 threads
+constexpr int kSimtDs = 128;      // state columns of a C or B chunk
+constexpr int kHalf = kSimtRows / 2;   // columns j of an M·X step
+constexpr int kLs = kSimtRows + 4;     // a row of S in shared memory, f32
+constexpr int kLh = kHalf + 4;         // a row of an M half, f32
+constexpr int kTile = kSimtRows * kSimtRows;   // floats of an S tile
+
+// (strip s, tile t <= s) of pair p = s (s + 1) / 2 + t
+__device__ __forceinline__ int2 tile_pair(int p) {
+  int s = 0;
+  while ((s + 1) * (s + 2) / 2 <= p) ++s;
+  return make_int2(s, p - s * (s + 1) / 2);
+}
+
+// Pass 1: S = C·Bᵀ of one (chunk z, group, strip s, tile t <= s), once
+// for all the group's heads, into its 64 x 64 f32 tile of the scratch
+// `cb` ((group, chunk, pair) order).  Thread (rg, cg) computes rows
+// rg + 16i and columns cg + 16j (4 x 4) over the state in chunks of 128,
+// C and B rows in shared memory padded by 16 bytes (so that the rows a
+// warp reads at one column lie in distinct banks), read as 4-wide
+// vectors along the state.
+template <typename T>
+__global__ void __launch_bounds__(kSimtThreads)
+ssd_cb_kernel(const T* __restrict__ b, const T* __restrict__ c,
+              float* __restrict__ cb, int BC, int Q, int g, int ds,
+              int vec) {
+  constexpr int kLd = kSimtDs + 16 / static_cast<int>(sizeof(T));
+  extern __shared__ __align__(16) uint8_t cb_raw[];
+  T* Cs = reinterpret_cast<T*>(cb_raw);                     // [64][kLd]
+  T* Bs = Cs + kSimtRows * kLd;                             // [64][kLd]
+  const int n_strips = (Q + kSimtRows - 1) / kSimtRows;
+  const int n_pairs = n_strips * (n_strips + 1) / 2;
+  const int zg = blockIdx.x / n_pairs;
+  const int z = zg % BC, grp = zg / BC;
+  const int2 st = tile_pair(blockIdx.x % n_pairs);
+  const int i0 = st.x * kSimtRows, j0 = st.y * kSimtRows;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = (warp / 2) * 4 + lane / 8, cg = (warp % 2) * 8 + lane % 8;
+  const long long stride = static_cast<long long>(g) * ds;
+  const long long base = static_cast<long long>(z) * Q * stride
+                         + static_cast<long long>(grp) * ds;
+
+  float s[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+  for (int ch = 0; ch * kSimtDs < ds; ++ch) {
+    if (ch > 0) __syncthreads();         // the last chunk is consumed
+    const int w = min(kSimtDs, ds - ch * kSimtDs), w4 = (w + 3) / 4 * 4;
+    load_rows(Cs, kLd, c + base + i0 * stride + ch * kSimtDs, stride,
+              kSimtRows, Q - i0, w, vec, tid, kSimtThreads);
+    load_rows(Bs, kLd, b + base + j0 * stride + ch * kSimtDs, stride,
+              kSimtRows, Q - j0, w, vec, tid, kSimtThreads);
+    // the state columns past ds, up to a multiple of 4: zeros
+    for (int e = tid; e < 2 * kSimtRows * (w4 - w); e += kSimtThreads)
+      Cs[e / (w4 - w) * kLd + w + e % (w4 - w)] = T(0.f);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();                     // the chunk landed
+#pragma unroll 2
+    for (int d = 0; d < w4; d += 4) {
+      float br[4][4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        ld_vec(br[jj], Bs + (cg + 16 * jj) * kLd + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float cr[4];
+        ld_vec(cr, Cs + (rg + 16 * i) * kLd + d);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            s[i][jj] = fmaf(cr[u], br[jj][u], s[i][jj]);
+      }
+    }
+  }
+  float* out = cb + static_cast<long long>(blockIdx.x) * kTile;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      out[(rg + 16 * i) * kSimtRows + cg + 16 * jj] = s[i][jj];
+}
+
+// The plan of a padded head dim DP = 16·DW (hd rounded up to 16, 32, 64
+// or 128; x's columns past hd reach only Y's, which are never stored).
+// Each quarter of the block serves kHQ heads of the block's 4·kHQ, one
+// after the other; its thread (qr, qc) owns rows qr + 8i (i < 8) of each
+// one's Y and columns 64·xs + kVW·qc + 8·kVW·v + w (an X tile is kXW
+// columns wide; kNXS of them a head): DP values a head, kHQ·DP <= 128
+// registers.  Past DP 32 one head a quarter: at DP 64 two heads' Y took
+// all 255 registers and spilled.
+template <typename T, int DW>
+struct SimtSsd {
+  static constexpr int kDP = 16 * DW;
+  static constexpr int kHQ = kDP > 32 ? 1 : 4;
+  static constexpr int kHB = 4 * kHQ;
+  static constexpr int kXW = kDP < 64 ? kDP : 64;
+  static constexpr int kNXS = kDP / kXW;
+  static constexpr int kVW = kXW / 8 < 4 ? kXW / 8 : 4;
+  static constexpr int kNV = kXW / (8 * kVW);
+  // shared memory in bytes: two S tiles (f32, rows padded by 16 bytes),
+  // then each quarter's ring of kRing X tiles (32 rows j x kXW) and its
+  // M half, two buffers of a tile's column data ({dacs_j} and {dt_j}, a
+  // row a head), the strip's dacs_i
+  static constexpr int kRing = 4;
+  static constexpr int kXTile = kHalf * kXW * static_cast<int>(sizeof(T));
+  static constexpr int kQuarter = kRing * kXTile + kSimtRows * kLh * 4;
+  static constexpr int kQ0 = 2 * kSimtRows * kLs * 4;
+  static constexpr int kCol = kQ0 + 4 * kQuarter;
+  static constexpr int kColFloats = 2 * kHB * kSimtRows;
+  static constexpr int kRow = kCol + 2 * kColFloats * 4;
+  static constexpr int kSmem = kRow + kHB * kSimtRows * 4;
+  static_assert(kSmem <= kSmemMax, "the SIMT plan overflows shared memory");
+};
+
+// Pass 2: one block owns a work item (chunk z, a strip of 64 rows i, a
+// block of `hb` heads of one group, hb <= kHB; a group whose heads hb
+// does not divide ends in a shorter block), strips longest first, and
+// walks the 64-column tiles j at or below the strip's diagonal, reading
+// each tile's S = C·Bᵀ from pass 1.  For each of its heads and each half
+// of the tile's columns, a quarter of the block forms M = S ∘ exp(dacs_i
+// − dacs_j) ∘ dt_j (0 above the diagonal and past Q), rounded to x's
+// type, for its own rows (so a warp reads back only what it wrote), and
+// adds M·X_h to the head's Y, 8 x 8 (or 8 x DP / 8) a thread in
+// registers, each 16-byte load of M or X feeding 16 FMAs.  X tiles come
+// by cp.async into each quarter's ring, kRing − 1 steps ahead of its
+// M·X; the next tile's S and column data during this tile's first step.
+// The quarters meet only at each tile's block barrier; within a tile
+// each waits at its own named barrier.
+template <typename T, int DW>
+__global__ void __launch_bounds__(kSimtThreads, 1)
+ssd_intra_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ dacs, const float* __restrict__ cb,
+                 T* __restrict__ y, int BC, int Q, int nh, int hd, int g,
+                 int hb, int vec) {
+  using Pl = SimtSsd<T, DW>;
+  constexpr int kHQ = Pl::kHQ, kHB = Pl::kHB, kXW = Pl::kXW;
+  constexpr int kNXS = Pl::kNXS, kVW = Pl::kVW, kNV = Pl::kNV;
+  constexpr int kRing = Pl::kRing;
+  extern __shared__ __align__(16) uint8_t simt_raw[];
+  float* Ss = reinterpret_cast<float*>(simt_raw);           // [2][64][kLs]
+  float* cols = reinterpret_cast<float*>(simt_raw + Pl::kCol);
+  float* rowA = reinterpret_cast<float*>(simt_raw + Pl::kRow);  // [kHB][64]
+
+  // the work item, longest strips first
+  const int n_strips = (Q + kSimtRows - 1) / kSimtRows;
+  const int hpg = nh / g, n_hblk = (hpg + hb - 1) / hb;
+  const int per_strip = BC * g * n_hblk;
+  const int strip = n_strips - 1 - blockIdx.x / per_strip;
+  const int rest = blockIdx.x % per_strip;
+  const int z = rest % BC, grp = rest / BC / n_hblk;
+  const int h0 = grp * hpg + (rest / BC % n_hblk) * hb;
+  const int nbh = min(hb, grp * hpg + hpg - h0);     // heads of this block
+  const int i0 = strip * kSimtRows;
+  const int rows = min(kSimtRows, Q - i0);
+  // this strip's S tiles in pass 1's scratch
+  const float* cbs = cb + (static_cast<long long>(grp * BC + z)
+                           * (n_strips * (n_strips + 1) / 2)
+                           + strip * (strip + 1) / 2) * kTile;
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  // quarter qd, its thread (qr, qc)
+  const int qd = warp / 2, qt = tid % 64, qr = qt / 8, qc = qt % 8;
+  // the quarter's heads: qd, qd + 4, ... below nbh
+  const int n_q = nbh > qd ? (nbh - qd + 3) / 4 : 0;
+  uint8_t* quarter = simt_raw + Pl::kQ0 + qd * Pl::kQuarter;
+  T* Xq = reinterpret_cast<T*>(quarter);              // [kRing][32][kXW]
+  float* Mq =                                         // [64][kLh]
+      reinterpret_cast<float*>(quarter + kRing * Pl::kXTile);
+
+  const long long x_stride = static_cast<long long>(nh) * hd;
+  const T* xz = x + static_cast<long long>(z) * Q * x_stride;
+  const long long cd0 = static_cast<long long>(z) * Q * nh;   // dt, dacs
+
+  // tile t's S and column data into buffer t % 2 (column data of heads
+  // past nbh and columns past Q: 0)
+  auto load_tile = [&](int t) {
+    load_rows(Ss + (t % 2) * kSimtRows * kLs, kLs, cbs + t * kTile,
+              kSimtRows, kSimtRows, kSimtRows, kSimtRows, true, tid,
+              kSimtThreads);
+    float* cl = cols + (t % 2) * Pl::kColFloats;
+    const int j0 = t * kSimtRows;
+    for (int e = tid; e < kHB * kSimtRows; e += kSimtThreads) {
+      const int hh = e / kSimtRows, jj = e % kSimtRows;
+      const bool in = hh < nbh && j0 + jj < Q;
+      const long long at = cd0 + static_cast<long long>(j0 + jj) * nh + h0 + hh;
+      cp_async4(cl + e, in ? dacs + at : dacs, in ? 4 : 0);
+      cp_async4(cl + kHB * kSimtRows + e, in ? dt + at : dt, in ? 4 : 0);
+    }
+  };
+  // step n of the quarter (tile, its k-th head, column half, X tile xs):
+  // its X tile into ring slot n % kRing, by the quarter's 64 threads
+  const int steps_a_tile = n_q * 2 * kNXS;
+  auto load_x = [&](int n) {
+    if (n >= (strip + 1) * steps_a_tile) return;
+    const int t = n / steps_a_tile, r = n % steps_a_tile;
+    const int k = r / (2 * kNXS), half = r / kNXS % 2, xs = r % kNXS;
+    const int j0 = t * kSimtRows + half * kHalf;
+    // (a half past Q reads nothing: its rows are zeros)
+    const T* src = j0 < Q ? xz + static_cast<long long>(j0) * x_stride
+                                + static_cast<long long>(h0 + qd + 4 * k) * hd
+                                + xs * 64
+                          : x;
+    load_rows(Xq + (n % kRing) * kHalf * kXW, kXW, src, x_stride, kHalf,
+              Q - j0, min(kXW, hd - xs * 64), vec, qt, 64);
+  };
+
+  for (int e = tid; e < kHB * kSimtRows; e += kSimtThreads) {
+    const int hh = e / kSimtRows, r = e % kSimtRows;
+    const bool in = hh < nbh && r < rows;
+    cp_async4(rowA + e,
+              in ? dacs + cd0 + static_cast<long long>(i0 + r) * nh + h0 + hh
+                 : dacs,
+              in ? 4 : 0);
+  }
+  load_tile(0);
+  for (int n = 0; n < kRing - 1; ++n) {  // the ring's first steps
+    if (n_q > 0) load_x(n);
+    cp_async_commit();
+  }
+
+  float acc[kHQ][8][kNXS][kNV][kVW];
+#pragma unroll
+  for (int k = 0; k < kHQ; ++k)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int xs = 0; xs < kNXS; ++xs)
+#pragma unroll
+        for (int nv = 0; nv < kNV; ++nv)
+#pragma unroll
+          for (int w = 0; w < kVW; ++w) acc[k][i][xs][nv][w] = 0.f;
+
+  int n = 0;                             // the quarter's steps so far
+  for (int t = 0; t <= strip; ++t) {
+    const int j0 = t * kSimtRows;
+    const bool diag = t == strip;        // only it reaches above i = j
+    cp_async_wait<0>();
+    __syncthreads();                     // S and column data of t landed
+    // the next tile's, under this tile's first M·X step (the quarters
+    // without a head start them now)
+    bool next_pending = t < strip;
+    if (n_q == 0 && next_pending) {
+      load_tile(t + 1);
+      cp_async_commit();
+    }
+    const float* St = Ss + (t % 2) * kSimtRows * kLs;
+    const float* cl = cols + (t % 2) * Pl::kColFloats;
+#pragma unroll
+    for (int k = 0; k < kHQ; ++k) {
+      if (k >= n_q) break;               // uniform over the quarter
+      const int hh = qd + 4 * k;
+      const float* ca = cl + hh * kSimtRows;
+      const float* cdt = cl + (kHB + hh) * kSimtRows;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        // M of head hh for the half's 32 columns, on the thread's rows
+        __syncwarp();                    // the warp's last M·X is done
+        const int c0 = half * kHalf + 4 * qc;   // the thread's 4 columns
+        float aj[4], dtj[4];
+        ld_vec(aj, ca + c0);
+        ld_vec(dtj, cdt + c0);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = qr + 8 * i;
+          const float ai = rowA[hh * kSimtRows + r];
+          float sv[4];
+          ld_vec(sv, St + r * kLs + c0);
+          float mv[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            mv[u] = 0.f;
+            if (!(diag && c0 + u > r) && j0 + c0 + u < Q)
+              mv[u] = round_to<T>(sv[u] * ex2_sfu((ai - aj[u]) * kLog2e)
+                                  * dtj[u]);
+          }
+          *reinterpret_cast<float4*>(Mq + r * kLh + 4 * qc) =
+              make_float4(mv[0], mv[1], mv[2], mv[3]);
+        }
+        __syncwarp();                    // the warp's M rows are whole
+#pragma unroll
+        for (int xs = 0; xs < kNXS; ++xs, ++n) {
+          cp_async_wait<kRing - 2>();    // step n's group; later ones pend
+          named_barrier(1 + qd, 64);     // X of step n landed; slot free
+          load_x(n + kRing - 1);
+          if (next_pending) {
+            load_tile(t + 1);
+            next_pending = false;
+          }
+          cp_async_commit();
+          const T* xt = Xq + (n % kRing) * kHalf * kXW;
+#pragma unroll 1
+          for (int jj = 0; jj < kHalf; jj += 4) {
+            float mr[8][4];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              ld_vec(mr[i], Mq + (qr + 8 * i) * kLh + jj);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              float xr[kNV][kVW];
+#pragma unroll
+              for (int nv = 0; nv < kNV; ++nv)
+                ld_vec(xr[nv], xt + (jj + u) * kXW + kVW * qc + 8 * kVW * nv);
+#pragma unroll
+              for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int nv = 0; nv < kNV; ++nv)
+#pragma unroll
+                  for (int w = 0; w < kVW; ++w)
+                    acc[k][i][xs][nv][w] = fmaf(mr[i][u], xr[nv][w],
+                                                acc[k][i][xs][nv][w]);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();                    // no copy outlives the block
+
+#pragma unroll
+  for (int k = 0; k < kHQ; ++k) {
+    if (k >= n_q) break;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = qr + 8 * i;
+      if (r >= rows) continue;
+      T* yrow = y + (static_cast<long long>(z) * Q + i0 + r) * x_stride
+                + static_cast<long long>(h0 + qd + 4 * k) * hd;
+#pragma unroll
+      for (int xs = 0; xs < kNXS; ++xs)
+#pragma unroll
+        for (int nv = 0; nv < kNV; ++nv)
+#pragma unroll
+          for (int w = 0; w < kVW; ++w) {
+            const int d = 64 * xs + kVW * qc + 8 * kVW * nv + w;
+            if (d < hd) yrow[d] = from_float<T>(acc[k][i][xs][nv][w]);
+          }
+    }
+  }
+}
+
+template <typename T, int DW>
+int launch_simt_dw(const void* x, const float* dt, const float* dacs,
+                   const void* b, const void* c, void* y, float* cb, int BC,
+                   int Q, int nh, int hd, int g, int ds, int hb,
+                   cudaStream_t stream) {
+  using Pl = SimtSsd<T, DW>;
+  if (hb < 1 || hb > Pl::kHB) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kCbSmem =
+      2 * kSimtRows * (kSimtDs + 16 / static_cast<int>(sizeof(T)))
+      * static_cast<int>(sizeof(T));
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_cb_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kCbSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(ssd_intra_kernel<T, DW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Pl::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // 16-byte copies where every row of x, b and c starts 16-byte aligned
+  // (the scratch's tiles always do)
+  const bool vec_x = (hd * sizeof(T)) % 16 == 0
+                     && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_bc = (ds * sizeof(T)) % 16 == 0
+                      && (reinterpret_cast<uintptr_t>(b)
+                          | reinterpret_cast<uintptr_t>(c)) % 16 == 0;
+  const long long n_strips = (Q + kSimtRows - 1) / kSimtRows;
+  const long long n_tiles = BC * g * (n_strips * (n_strips + 1) / 2);
+  const long long n_items = n_strips * BC * g * ((nh / g + hb - 1) / hb);
+  if (n_tiles > 0x7fffffffLL || n_items > 0x7fffffffLL
+      || reinterpret_cast<uintptr_t>(cb) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ssd_cb_kernel<T><<<static_cast<unsigned>(n_tiles), kSimtThreads, kCbSmem,
+                     stream>>>(static_cast<const T*>(b),
+                               static_cast<const T*>(c), cb, BC, Q, g, ds,
+                               vec_bc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_intra_kernel<T, DW><<<static_cast<unsigned>(n_items), kSimtThreads,
+                            Pl::kSmem, stream>>>(
+      static_cast<const T*>(x), dt, dacs, cb, static_cast<T*>(y), BC, Q, nh,
+      hd, g, hb, vec_x);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The SIMT kernels of x's head-dim class: hd rounded up to 16, 32, 64 or
+// 128.
+template <typename T>
+int launch_simt(const void* x, const float* dt, const float* dacs,
+                const void* b, const void* c, void* y, float* cb, int BC,
+                int Q, int nh, int hd, int g, int ds, int hb,
+                cudaStream_t stream) {
+  if (hd <= 16)
+    return launch_simt_dw<T, 1>(x, dt, dacs, b, c, y, cb, BC, Q, nh, hd, g,
+                                ds, hb, stream);
+  if (hd <= 32)
+    return launch_simt_dw<T, 2>(x, dt, dacs, b, c, y, cb, BC, Q, nh, hd, g,
+                                ds, hb, stream);
+  if (hd <= 64)
+    return launch_simt_dw<T, 4>(x, dt, dacs, b, c, y, cb, BC, Q, nh, hd, g,
+                                ds, hb, stream);
+  return launch_simt_dw<T, 8>(x, dt, dacs, b, c, y, cb, BC, Q, nh, hd, g, ds,
+                              hb, stream);
+}
+
 }  // namespace
 
 // y = intra-chunk SSD of x/b/c of working type `dtype` (DType: f32 or
 // bf16; y has x's type) and f32 dt/dacs, all contiguous in the layouts
-// above on CUDA device `device`; nh % g == 0, hd <= 128 and ds <= 256
-// (181 KB of shared memory at most).  Launches on `stream` and returns
-// the launch's cudaError_t (0 on success).
+// above on CUDA device `device`; nh % g == 0, hd <= 128 and ds <= 256,
+// by the SIMT kernels: `cb` is their f32 scratch of C·Bᵀ tiles, BC·g·
+// n(n + 1)/2 tiles of 64 x 64 for n = ceil(Q / 64) strips, 16-byte
+// aligned, and `hb` the heads of a work item (`simt_heads`: 1 to 16 up
+// to hd 32, to 4 past it).  Launches both passes on `stream` and returns
+// the launches' cudaError_t (0 on success).
 extern "C" int ssd_intra(int dtype, const void* x, const float* dt,
                          const float* dacs, const void* b, const void* c,
-                         void* y, int BC, int Q, int nh, int hd, int g,
-                         int ds, int device, void* stream) {
+                         void* y, float* cb, int BC, int Q, int nh, int hd,
+                         int g, int ds, int hb, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (hd > kMaxHd || g < 1 || nh % g)
+  if (BC < 1 || Q < 1 || hd < 1 || hd > kMaxHd || ds < 1 || ds > 256
+      || g < 1 || nh % g)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch<float>(x, dt, dacs, b, c, y, BC, Q, nh, hd, g, ds, s);
+      return launch_simt<float>(x, dt, dacs, b, c, y, cb, BC, Q, nh, hd, g,
+                                ds, hb, s);
     case kBF16:
-      return launch<__nv_bfloat16>(x, dt, dacs, b, c, y, BC, Q, nh, hd, g,
-                                   ds, s);
+      return launch_simt<__nv_bfloat16>(x, dt, dacs, b, c, y, cb, BC, Q, nh,
+                                        hd, g, ds, hb, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

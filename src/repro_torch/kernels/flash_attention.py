@@ -33,12 +33,18 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.kernels.ref import ref_attention
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HD = 256                        # dims a warp holds: 8 a lane
+_MAX_HD = 256                        # the SIMT kernel's widest plan
 #: head dims of the tensor-core path: whole 64-column boxes, or 96 and
 #: 112 (phi-3-vision's, zamba2's) in two boxes zero-filled past hd
 _WGMMA_HD = (64, 96, 112, 128, 192)
 #: query rows of a wgmma block; keys of a SIMT tile
-_WGMMA_ROWS, _SIMT_KEYS = 128, 32
+_WGMMA_ROWS, _SIMT_KEYS = 128, 64
+
+
+def simt_rows(hd: int) -> int:
+    """Query rows of a SIMT block: 128, or 64 past hd 128, where Q, K, V
+    and P must still fit one block's shared memory."""
+    return 64 if hd > 128 else 128
 
 
 def variant(dtype: torch.dtype, hd: int) -> str:
@@ -99,30 +105,20 @@ def _(q, k, v, causal, scale, path):
 
 def flash_flops(q_shape, k_shape, causal: bool, path: str) -> int:
     """FLOPs the kernel `path` executes: 4·hd a (query, key) pair it
-    computes, for each head.  The wgmma kernel computes whole tiles of
-    128 query rows by 128 keys (64 past hd 128), under `causal` up to the
-    tile that holds its last row's diagonal; the SIMT kernel computes, for
-    each query row, tiles of 32 keys, under `causal` up to its own
-    diagonal's tile."""
+    computes, for each head.  Both kernels compute whole tiles of a
+    block's query rows by a tile's keys, under `causal` up to the tile
+    that holds the block's last row's diagonal: the wgmma kernel 128 rows
+    by 128 keys (64 past hd 128), the SIMT kernel 128 rows (64 past hd
+    128, `simt_rows`) by 64 keys."""
     B, Sq, H, hd = q_shape
     Sk = k_shape[1]
     if path == "wgmma_bf16":
-        kv = 64 if hd > 128 else 128
-        ends = ([min(Sk, q0 + _WGMMA_ROWS) for q0 in
-                 range(0, Sq, _WGMMA_ROWS)] if causal
-                else [Sk] * math.ceil(Sq / _WGMMA_ROWS))
-        pairs = _WGMMA_ROWS * kv * sum(math.ceil(e / kv) for e in ends)
+        rows, kv = _WGMMA_ROWS, 64 if hd > 128 else 128
     else:
-        t = _SIMT_KEYS
-        if causal:
-            # row i < Sk computes tiles 0..i // t; rows past Sk all of them
-            n = min(Sq, Sk)
-            full, rem = divmod(n, t)
-            tiles = t * full * (full + 1) // 2 + rem * (full + 1) \
-                + (Sq - n) * math.ceil(Sk / t)
-        else:
-            tiles = Sq * math.ceil(Sk / t)
-        pairs = t * tiles
+        rows, kv = simt_rows(hd), _SIMT_KEYS
+    ends = ([min(Sk, q0 + rows) for q0 in range(0, Sq, rows)] if causal
+            else [Sk] * math.ceil(Sq / rows))
+    pairs = rows * kv * sum(math.ceil(e / kv) for e in ends)
     return 4 * hd * B * H * pairs
 
 

@@ -6,7 +6,9 @@ the within-chunk cumsum of dA.  A CUDA tensor launches `csrc/ssd_scan.cu`
 (the counterpart of the TPU kernel `repro/kernels/ssd_scan.py::_ssd_kernel`;
 its source notes its design and bound): bf16 at the shapes `variant`
 names runs its TMA + wgmma kernel, which computes C·Bᵀ once for
-`wgmma_heads` heads of one group, everything else its SIMT kernel.  A
+`wgmma_heads` heads of one group, everything else its register-tiled
+SIMT kernels, which compute it once a (chunk, group) into a scratch
+tensor (`simt_scratch`) and then serve `simt_heads` heads a block.  A
 CPU tensor takes the plain version, `ref.ref_ssd_intra`; a meta tensor,
 which stands for a card tensor in a shape-only trace, takes the op's
 fake version.  A CUDA call whose inputs require grad, with grad mode
@@ -38,6 +40,8 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HD, _MAX_DS = 128, 256          # what one block's shared memory holds
 _WGMMA_HD = (64, 128)                # head dims of the tensor-core kernel
 _WGMMA_MAX_Q = 1024                  # its column data in shared memory
+#: rows of a SIMT strip, and columns of each of its tiles
+_SIMT_ROWS = 64
 
 
 def variant(dtype: torch.dtype, Q: int, hd: int, ds: int) -> str:
@@ -58,14 +62,22 @@ def wgmma_heads(hd: int, nh: int, g: int) -> int:
     return 2 if hd == 64 and (nh // g) % 2 == 0 else 1
 
 
+def simt_heads(hd: int) -> int:
+    """Heads a work item of the SIMT kernel serves from one C·Bᵀ: 4 heads'
+    Y to each of its 4 quarters up to hd 32 (hd_pad, hd rounded up to 16
+    or 32, registers a thread a head), one past it (64 or 128 registers).
+    A group whose heads it does not divide ends in a shorter block."""
+    return 16 if hd <= 32 else 4
+
+
 def _kernel(name: str):
     from repro_torch.kernels import _build
     fn = getattr(_build.load("ssd_scan"), name)
     if fn.argtypes is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
         if name == "ssd_intra":
-            fn.argtypes = [i32, p, p, p, p, p, p, i32, i32, i32, i32, i32,
-                           i32, i32, p]
+            fn.argtypes = [i32, p, p, p, p, p, p, p, i32, i32, i32, i32,
+                           i32, i32, i32, i32, p]
         else:
             fn.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32, i32, i32,
                            i32, i32, p]
@@ -73,22 +85,37 @@ def _kernel(name: str):
     return fn
 
 
+def simt_scratch(BC: int, Q: int, g: int) -> int:
+    """f32 values of the SIMT kernel's C·Bᵀ scratch: a 64 x 64 tile for
+    each (chunk, group, strip, column tile at or below the strip)."""
+    n = -(-Q // _SIMT_ROWS)
+    return BC * g * n * (n + 1) // 2 * _SIMT_ROWS * _SIMT_ROWS
+
+
+def _kernel_call(x, dt, dacs, b, c, y):
+    """The C function of `variant`'s kernel, its arguments, writing y, for
+    validated CUDA inputs, and the scratch they name (None, or the SIMT
+    kernel's C·Bᵀ tiles), which must outlive every launch with them."""
+    BC, Q, nh, hd = x.shape
+    _, _, g, ds = b.shape
+    ptrs = (x.data_ptr(), dt.data_ptr(), dacs.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr())
+    tail = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    if variant(x.dtype, Q, hd, ds) == "wgmma_bf16":
+        return _kernel("ssd_intra_bf16_wgmma"), (
+            *ptrs, BC, Q, nh, hd, g, ds, wgmma_heads(hd, nh, g), *tail), None
+    cb = torch.empty(simt_scratch(BC, Q, g), dtype=torch.float32,
+                     device=x.device)
+    return _kernel("ssd_intra"), (_CODES[x.dtype], *ptrs, cb.data_ptr(), BC,
+                                  Q, nh, hd, g, ds, simt_heads(hd), *tail), cb
+
+
 def _launch(x, dt, dacs, b, c) -> torch.Tensor:
     """One launch of `variant`'s kernel on validated CUDA inputs; no
     count."""
-    BC, Q, nh, hd = x.shape
-    _, _, g, ds = b.shape
     y = torch.empty_like(x)
-    ptrs = (x.data_ptr(), dt.data_ptr(), dacs.data_ptr(), b.data_ptr(),
-            c.data_ptr(), y.data_ptr())
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if variant(x.dtype, Q, hd, ds) == "wgmma_bf16":
-        err = _kernel("ssd_intra_bf16_wgmma")(
-            *ptrs, BC, Q, nh, hd, g, ds, wgmma_heads(hd, nh, g),
-            x.device.index, stream)
-    else:
-        err = _kernel("ssd_intra")(_CODES[x.dtype], *ptrs, BC, Q, nh, hd, g,
-                                   ds, x.device.index, stream)
+    fn, args, _scratch = _kernel_call(x, dt, dacs, b, c, y)
+    err = fn(*args)
     if err:
         raise RuntimeError(f"ssd_intra kernel launch failed: CUDA error {err}")
     return y
@@ -114,9 +141,9 @@ def _(x, dt, dacs, b, c, path):
 def ssd_flops(x_shape, b_shape) -> int:
     """FLOPs of the intra-chunk term, as the kernels' bounds count them:
     C·B and M·X over the causal pairs of each chunk, and M's decay and
-    scale, 2·(ds + hd) + 4 a pair, for each head (the wgmma kernel
-    computes C·Bᵀ once a block of `wgmma_heads` heads, so this overstates
-    its tensor work)."""
+    scale, 2·(ds + hd) + 4 a pair, for each head (both kernels compute
+    C·Bᵀ once a block of `wgmma_heads` heads, the SIMT kernels once a
+    group, so this overstates their work)."""
     BC, Q, nh, hd = x_shape
     ds = b_shape[-1]
     return BC * nh * Q * (Q + 1) // 2 * (2 * (ds + hd) + 4)
@@ -136,7 +163,7 @@ def ssd_intra_kernel(x, dt, dacs, b, c, *, head_block: int = 8):
     output (BC, Q, nh, hd) in x's dtype.  `head_block` is the reference's
     head blocking: nh must be a multiple of min(head_block, nh), as
     there; the card's kernels group heads by their own rule
-    (`wgmma_heads`, or one head a block) whatever it is.
+    (`wgmma_heads`, `simt_heads`) whatever it is.
     """
     BC, Q, nh, hd = x.shape
     g, ds = b.shape[-2:]

@@ -124,7 +124,7 @@ def test_gemm_cluster_policy_matches_reference(M, N, K, dtype):
     assert prof.profiled_flops == 2 * me * ne * (-(-K // 128) * 128)
 
 
-@settings(max_examples=60)
+@settings(max_examples=60, deadline=None)
 @given(st.integers(1, 5000), st.integers(1, 5000), st.integers(1, 5000),
        st.sampled_from([128, 256, 512]), st.sampled_from([128, 256, 512]),
        st.sampled_from([128, 256, 512]), st.integers(1, 2),
@@ -174,7 +174,7 @@ def test_wgmma_tile_n_rejects_what_is_not_a_whole_tile(M, N, K):
         gemm.wgmma_tile_n(M, N, K)
 
 
-@settings(max_examples=60)
+@settings(max_examples=60, deadline=None)
 @given(st.integers(1, 5000), st.integers(1, 5000), st.integers(1, 5000))
 def test_every_bf16_policy_pads_to_whole_wgmma_tiles(M, N, K):
     """`pick_policy`'s bf16 choices all have tm, tn, tk >= 128, so the
@@ -354,6 +354,15 @@ def test_ssd_variant_is_chosen_by_dtype_and_shape(dtype, Q, hd, ds, want):
 def test_ssd_wgmma_heads_divide_each_group(hd, nh, g, want):
     hb = ssd_scan.wgmma_heads(hd, nh, g)
     assert hb == want and (nh // g) % hb == 0
+
+
+@pytest.mark.parametrize("hd,want", [
+    (8, 16), (16, 16), (32, 16),         # Y: hd_pad registers a head
+    (64, 4), (96, 4), (128, 4)])         # in each of 4 quarters
+def test_ssd_simt_heads_fill_at_most_128_registers(hd, want):
+    hd_pad = next(p for p in (16, 32, 64, 128) if hd <= p)
+    assert ssd_scan.simt_heads(hd) == want
+    assert want % 4 == 0 and want // 4 * hd_pad <= 128
 
 
 @pytest.mark.parametrize("dtype,Q,hd,ds", [
@@ -609,6 +618,86 @@ def test_flash_simt_takes_head_dims_up_to_256(cuda, dtype, hd):
     tol = 1e-3 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(out.float(), ref_attention(
         q, k, v, causal=True).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,hd", [
+    (torch.float32, 16), (torch.float32, 96), (torch.float32, 192),
+    (torch.float32, 256), (torch.bfloat16, 32), (torch.bfloat16, 256),
+    (torch.float32, 18)])                # rows not 16-byte multiples
+@pytest.mark.parametrize("Sq,Sk", [(130, 200), (200, 130)])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_simt_tiles_hold_at_their_edges(cuda, dtype, hd, Sq, Sk, G,
+                                              causal):
+    """The SIMT kernel's 128-row (64 past hd 128) by 64-key tiles at
+    edges they do not divide, Sq < Sk and Sq > Sk, GQA groups of 1 and 4,
+    causal and full, and rows its 16-byte copies cannot take; f32 at
+    1e-3, bf16 at 5e-2, one `simt` launch."""
+    assert fa.variant(dtype, hd) == "simt"
+    gen = torch.Generator().manual_seed(hd + Sq + 7 * G + causal)
+    q = _randn(gen, (2, Sq, 2 * G, hd), dtype, cuda)
+    k = _randn(gen, (2, Sk, 2, hd), dtype, cuda)
+    v = _randn(gen, (2, Sk, 2, hd), dtype, cuda)
+    by = dict(flash_attention_kernel.launches_by)
+    out = flash_attention_kernel(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches_by == {**by,
+                                                  "simt": by["simt"] + 1}
+    tol = 1e-3 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(out.float(), ref_attention(
+        q, k, v, causal=causal).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("BC,Q,nh,hd,g,ds", [
+    (2, 64, 14, 64, 1, 128),     # 14 heads a group: blocks of 4 and 2
+    (2, 256, 12, 64, 2, 128),    # 6 heads a group: blocks of 4 and 2
+    (2, 256, 6, 16, 6, 16),      # g = nh: one head a block
+    (3, 64, 18, 16, 1, 256),     # hd 16: 18 heads, blocks of 16 and 2
+    (1, 256, 10, 128, 1, 256),   # hd 128: blocks of 4, 4, 2; ds 256
+    (2, 256, 20, 128, 2, 16),    # hd 128, ds 16: 10 heads a group
+    (2, 100, 6, 64, 2, 128),     # Q past one strip, not a multiple of 64
+    (1, 80, 4, 100, 1, 200),     # hd 100, ds 200: ragged X tile and chunk
+    (2, 64, 4, 18, 2, 10)])      # rows not 16-byte multiples: plain loads
+def test_ssd_simt_head_blocks_hold_at_their_edges(cuda, BC, Q, nh, hd, g,
+                                                  ds):
+    """The SIMT kernel's head blocks (`simt_heads`: 16 up to hd 32, 4 past
+    it) where a group's heads do not fill them, one group, two and one a
+    head, state in one chunk of 128 and in two; f32 at 1e-3, one `simt`
+    launch."""
+    assert ssd_scan.variant(torch.float32, Q, hd, ds) == "simt"
+    x, dt, dacs, b, c = (torch.from_numpy(a).to(cuda) for a in _ssd_inputs(
+        np.random.default_rng(BC * Q + nh + hd + ds), BC, Q, nh, hd, ds))
+    bg, cg = b[:, :, :g].contiguous(), c[:, :, :g].contiguous()
+    by = dict(ssd_intra_kernel.launches_by)
+    # (head_block is the reference's blocking, which the card ignores)
+    out = ssd_intra_kernel(x, dt, dacs, bg, cg, head_block=1)
+    torch.cuda.synchronize()
+    assert ssd_intra_kernel.launches_by == {**by, "simt": by["simt"] + 1}
+    torch.testing.assert_close(out, ref_ssd_intra(x, dt, dacs, bg, cg),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_ssd_simt_takes_bf16_at_other_head_dims(cuda):
+    """bf16 at hd 96, which the tensor-core kernel does not take, with
+    Mamba2's dt and A, at chip_smoke.py's full-width limit."""
+    BC, Q, nh, hd, g, ds = 2, 128, 6, 96, 2, 128
+    assert ssd_scan.variant(torch.bfloat16, Q, hd, ds) == "simt"
+    gen = torch.Generator().manual_seed(96)
+    x = _randn(gen, (BC, Q, nh, hd), torch.bfloat16, cuda, 0.5)
+    dt = torch.exp(torch.empty((BC, Q, nh)).uniform_(
+        np.log(1e-3), np.log(1e-1), generator=gen))
+    A = -torch.empty(nh).uniform_(1.0, 16.0, generator=gen)
+    dt, dacs = dt.to(cuda), torch.cumsum(dt * A, dim=1).to(cuda)
+    b = _randn(gen, (BC, Q, g, ds), torch.bfloat16, cuda, 0.3)
+    c = _randn(gen, (BC, Q, g, ds), torch.bfloat16, cuda, 0.3)
+    by = dict(ssd_intra_kernel.launches_by)
+    out = ssd_intra_kernel(x, dt, dacs, b, c)
+    torch.cuda.synchronize()
+    assert ssd_intra_kernel.launches_by == {**by, "simt": by["simt"] + 1}
+    _close_rows(out, ref_ssd_intra(x, dt, dacs, b, c))
 
 
 @pytest.mark.gpu
@@ -879,3 +968,16 @@ def test_kernels_reject_what_they_do_not_take(cuda):
             _ssd_inputs(np.random.default_rng(0), 1, 8, 2, 4, 4)]
     with pytest.raises(TypeError, match="float32 dt"):
         ssd_intra_kernel(arrs[0], arrs[1].double(), *arrs[2:])
+
+
+@pytest.mark.parametrize("source,variants", [
+    ("ssd_scan", "SSD_VARIANTS"), ("ssd_scan", "SIMT_SSD_VARIANTS"),
+    ("fleet_hist", "HIST_VARIANTS"), ("flash_attention", "FLASH_VARIANTS")])
+def test_ablation_variants_find_their_text(source, variants):
+    """Every part `kernels.ablation` removes or changes is still in the
+    source it edits, so the card's run builds every variant."""
+    from repro_torch.kernels import _build, ablation
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    for what, pairs in getattr(ablation, variants).items():
+        for old, _ in pairs:
+            assert old in text, f"{source}.cu {what!r}"

@@ -439,7 +439,8 @@ def test_fake_ssd_counts_its_formula_and_launches_nothing():
 
 def test_flash_formula_counts_the_tilings():
     """wgmma: 128-row tiles by 128 keys (64 past hd 128) up to each
-    tile's diagonal; SIMT: each row's 32-key tiles up to its own."""
+    tile's diagonal; SIMT: 128-row tiles (64 past hd 128) by 64 keys up
+    to each tile's diagonal."""
     assert fa.flash_flops((1, 256, 1, 64), (1, 256, 1, 64), True,
                           "wgmma_bf16") == 4 * 64 * 128 * (128 + 256)
     assert fa.flash_flops((1, 256, 1, 192), (1, 256, 1, 192), True,
@@ -447,9 +448,42 @@ def test_flash_formula_counts_the_tilings():
     assert fa.flash_flops((2, 100, 3, 64), (2, 200, 1, 64), False,
                           "wgmma_bf16") == 4 * 64 * 6 * 128 * 256
     assert fa.flash_flops((1, 64, 1, 16), (1, 64, 1, 16), True,
-                          "simt") == 4 * 16 * 32 * (32 * 1 + 32 * 2)
+                          "simt") == 4 * 16 * 128 * 64
     assert fa.flash_flops((1, 70, 1, 16), (1, 40, 1, 16), True,
-                          "simt") == 4 * 16 * 32 * (32 + 8 * 2 + 30 * 2)
+                          "simt") == 4 * 16 * 128 * 64
+
+
+def _simt_pairs_by_enumeration(Sq, Sk, hd, causal):
+    """The (query, key) pairs the SIMT flash kernel computes, counted one
+    by one over its loops: each block of `rows` query rows (the rows past
+    Sq included) takes 64-key tiles from key 0 while a tile starts below
+    its key limit: Sk, or under `causal` the block's last row + 1 (at
+    most Sk); every row of the block meets every key slot of a tile."""
+    rows = 64 if hd > 128 else 128
+    pairs = 0
+    for q0 in range(0, Sq, rows):
+        limit = min(Sk, q0 + rows) if causal else Sk
+        for j0 in range(0, limit, 64):
+            for _row in range(q0, q0 + rows):
+                for _key in range(j0, j0 + 64):
+                    pairs += 1
+    return pairs
+
+
+@pytest.mark.parametrize("Sq,Sk,hd", [
+    (256, 256, 64),          # whole tiles
+    (100, 300, 96),          # Sq < Sk
+    (300, 100, 112),         # Sq > Sk
+    (130, 131, 128),         # ragged both ways
+    (200, 230, 192),         # 64-row blocks past hd 128
+    (1, 1, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_simt_formula_matches_an_enumeration_of_its_tiles(Sq, Sk, hd,
+                                                                causal):
+    B, H = 2, 3
+    want = 4 * hd * B * H * _simt_pairs_by_enumeration(Sq, Sk, hd, causal)
+    assert fa.flash_flops((B, Sq, H, hd), (B, Sk, 1, hd), causal,
+                          "simt") == want
 
 
 def test_main_writes_records_and_skips(tmp_path, capsys):

@@ -102,7 +102,7 @@ def _column(rng, dtype, d, s):
                         endpoint=True).astype(dt)
 
 
-@settings(max_examples=60)
+@settings(max_examples=60, deadline=None)
 @given(st.integers(min_value=1, max_value=5),
        st.integers(min_value=0, max_value=70),
        st.sampled_from(DTYPES),
@@ -118,7 +118,7 @@ def test_codec_roundtrip_is_bit_exact(d, s, dtype, name, seed):
     assert out.tobytes() == arr.tobytes(), (name, dtype, arr.shape)
 
 
-@settings(max_examples=40)
+@settings(max_examples=40, deadline=None)
 @given(st.integers(min_value=0, max_value=300),
        st.sampled_from([2, 4, 8]),
        st.integers(min_value=0, max_value=2 ** 31 - 1))
@@ -153,7 +153,7 @@ def _codec_grid(seed=5, d=3, s=137, dtype=np.float32, interval=30.0, t0=0.0):
     return DeviceGrid(interval, _column(rng, dtype, d, s), clk, t0_s=t0)
 
 
-@settings(max_examples=12)
+@settings(max_examples=12, deadline=None)
 @given(st.sampled_from(codecs.codec_names()),
        st.integers(min_value=1, max_value=64),
        st.integers(min_value=0, max_value=2 ** 31 - 1))
@@ -636,7 +636,7 @@ def test_columnar_beats_csv_by_4x(tmp_path):
 # ---------------------------------------------------------------------------
 # Properties: arbitrary geometry, arbitrary cursors
 # ---------------------------------------------------------------------------
-@settings(max_examples=20)
+@settings(max_examples=20, deadline=None)
 @given(n_dev=st.integers(1, 3), n_samples=st.integers(1, 50),
        chunk=st.integers(1, 17), iv=st.sampled_from([5.0, 15.0, 30.0]),
        t0_steps=st.integers(0, 40), seed=st.integers(0, 2 ** 16),
@@ -658,7 +658,7 @@ def test_property_roundtrip_exact(n_dev, n_samples, chunk, iv, t0_steps,
     np.testing.assert_array_equal(back.clock_mhz, grid.clock_mhz)
 
 
-@settings(max_examples=15)
+@settings(max_examples=15, deadline=None)
 @given(n_samples=st.integers(4, 80), chunk=st.integers(1, 13),
        iv=st.sampled_from([15.0, 30.0]), t0_steps=st.integers(0, 10),
        seed=st.integers(0, 2 ** 16),
@@ -696,7 +696,7 @@ def test_property_chunked_replay_matches_inmemory(
         == pytest.approx(grid.tpa.size * 16 / 2)
 
 
-@settings(max_examples=10)
+@settings(max_examples=10, deadline=None)
 @given(chunk=st.integers(1, 9), seed=st.integers(0, 2 ** 16),
        cut_steps=st.integers(1, 30))
 def test_property_seek_resumes_exactly(chunk, seed, cut_steps):
