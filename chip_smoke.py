@@ -197,6 +197,30 @@
    Runs the six CLIs' `--self-check` (`repro_torch.tools.*`) on the card
    in this process, each of which must return 0, with the histogram
    kernel's launches counted per CLI (their output goes to build/tools/).
+15. The paper's own measurement on the card.  (a) Fig. 1's sweep through
+   the GEMM kernel again under the H100's tile policies
+   (`pick_policy(..., chip=H100_SXM)`: the kernel's own tiles), launched
+   FLOPs == GemmProfile == closed form on every call.  (b) A host thread
+   polls the card every 0.2 s through the port's acquisition tier
+   (`PynvmlTransport` -> `DcgmFieldBackend`, strict) over windows
+   bracketed by `torch.cuda.synchronize()`: idle, the GEMM kernel in
+   bf16, int8 and fp32 at N 8,192 and in bf16 at Fig. 1's first ragged
+   shape, each repeated for 3 s under the H100's policies, and phase
+   12's three timed zamba2-7b train steps (the poller starts in phase
+   12).  Each window prints its tensor-activity source (NVML's field,
+   its GPM metric, or `utilization.gpu`, which is not tensor activity),
+   mean reading, mean and least SM clock, OFU = mean(TPA·f) / 1,830 MHz,
+   MFU over the type's `H100_SXM` peak (theoretical FLOPs over the
+   window; `train_step_flops` with and without remat's recompute for
+   the train steps) and the tile-corrected OFU's gap from MFU in points.
+   Fails unless NVML connects, every reading passes the backend's range
+   checks, the SM clock is non-zero in every window and, with a true
+   tensor source, bf16 lifts TPA >= 0.2 above idle while true f32 stays
+   below 0.1.  (c) Serves `python -m repro_torch.tools.fleet_live
+   --transport pynvml --chip h100-sxm` (3 rounds of 3 s) in this process
+   on a free local port: a `FleetClient` must read its fleet series over
+   HTTP, and it must return 0 with its backend healthy (its output goes
+   to build/counters/).
 
 Prints the phase times and peak device memory, then one JSON line with
 every kernel's record (the histogram kernel's also carries
@@ -207,7 +231,9 @@ the SIMT kernels' f32 calls), `model_launches`, their launches in phase 11's pre
 `train_launches`, their launches a phase 12 train step; the histogram
 and GEMM kernels' carry `bench_launches`, their counts over phase 13's
 benchmark suite; the histogram kernel's carries `tools_launches`, its
-launches in each of phase 14's CLI self-checks) and, last,
+launches in each of phase 14's CLI self-checks; the histogram and GEMM
+kernels' carry `counters_launches`, their counts over phase 15, and the
+flash and SSD kernels' theirs over phase 15's train window) and, last,
 `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result,
 when a phase fails, when CUDA is absent, or when run outside a checkout
 of the repository.
@@ -219,6 +245,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -523,8 +550,10 @@ def main() -> None:
     for name, n in model_launches.items():
         records[name]["model_launches"] = n
 
-    # -- 12. training at full width ------------------------------------------
-    train_launches, train_measured = train_phase(torch, dev, card, params)
+    # -- 12. training at full width, polled for phase 15's train window ------
+    poller = CounterPoller(COUNTER_POLL_S)
+    train_launches, train_measured, train_window = train_phase(
+        torch, dev, card, params, poller)
     measured.update({f"train_{k}": v for k, v in train_measured.items()})
     del params
     for name, n in train_launches.items():
@@ -537,6 +566,11 @@ def main() -> None:
     # -- 14. the ops, the dry run, the roofline and the six CLIs ------------
     records["fleet_hist"]["tools_launches"] = dryrun_phase(
         torch, dev, card, measured)
+
+    # -- 15. the card's own counters: TPA, SM clock, OFU beside MFU --------
+    for name, n in counters_phase(torch, dev, card, poller,
+                                  train_window).items():
+        records[name]["counters_launches"] = n
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2860,15 +2894,17 @@ def layer_sums(torch, tree) -> dict:
             for k, s in layer_slices(tree).items()}
 
 
-def train_phase(torch, dev, card: str, params) -> dict:
+def train_phase(torch, dev, card: str, params, poller) -> tuple:
     """Phase 12: zamba2-7b at full width through the port's `Trainer`
     (one warm-up step, 3 timed, one under the profiler), on phase 11's
     parameters, with its gradient checks (a) and (b); then (c), three
     families at published width, 2 layers, each an f32 train step
-    against the CPU and a crash restart through checkpoints.  Returns
-    each model kernel's launches a full-width train step, and the timed
-    steps' mean s and the steps' peak device memory less what earlier
-    phases still hold (phase 14 holds the dry run to them)."""
+    against the CPU and a crash restart through checkpoints.  `poller`
+    (a `CounterPoller`) polls the card over the timed steps, phase 15's
+    train window.  Returns each model kernel's launches a full-width
+    train step, the timed steps' mean s and the steps' peak device memory
+    less what earlier phases still hold (phase 14 holds the dry run to
+    them), and the train window: its bounds, steps and launches."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -2916,11 +2952,19 @@ def train_phase(torch, dev, card: str, params) -> dict:
         return ([st.get(k, 0) for k in alloc_keys]
                 + [st.get("reserved_bytes.all.current", 0), *gc_s])
 
+    window = {}
+
     def hook(step):
         counts.append((dict(fa.launches_by), dict(sk.launches_by)))
         host.append(snapshot())
+        if step == 1:                   # phase 15's window: the timed steps
+            torch.cuda.synchronize()
+            poller.start()
+            window["t0"] = time.perf_counter()
         if step == n_steps - 1:
             torch.cuda.synchronize()
+            window["t1"] = time.perf_counter()
+            poller.stop()
             prof.__enter__()
     handed = [params]
     with tempfile.TemporaryDirectory() as ck:
@@ -3039,10 +3083,15 @@ def train_phase(torch, dev, card: str, params) -> dict:
         t = mark
     print(f"train phase 12: {time.perf_counter() - t_phase:.2f} s ("
           + ", ".join(split) + " s)")
+    window.update(cfg=cfg, shape=shape, steps=TRAIN_TIMED, launches={
+        "flash_attention": sum(st[0]["wgmma_bf16"]
+                               for st in per_step[1:1 + TRAIN_TIMED]),
+        "ssd_intra": sum(st[1]["wgmma_bf16"]
+                         for st in per_step[1:1 + TRAIN_TIMED])})
     # a timed step's launches, as counted (every step's equal `want`)
     return {"flash_attention": per_step[1][0]["wgmma_bf16"],
             "ssd_intra": per_step[1][1]["wgmma_bf16"]}, \
-        {"step_s": s, "peak": peak - others}
+        {"step_s": s, "peak": peak - others}, window
 
 
 def train_family_check(torch, dev, model: str, S: int) -> None:
@@ -3265,22 +3314,31 @@ def bench_phase(torch, dev, card: str) -> dict:
     return launches
 
 
-def gemm_sweep(torch, dev, card: str) -> None:
-    """Fig. 1's sweep through the GEMM kernel at the sweep's own sizes in
-    bf16, int8 and fp32: each call's launched FLOPs must equal its
-    GemmProfile's and the closed form; 64 random rows of each output are
-    held against a float64 product of the same operands (bf16 to 2^-6 of
-    the value plus 2^-5 of the row's RMS, fp32 as `gemm_path`, int8
-    exact); the kernel alone is timed on the padded operands."""
-    from repro_torch.core.tile_quant import pick_policy, profiled_flops
-    from repro_torch.kernels import gemm, ops
-
+def sweep_shapes() -> list:
+    """Fig. 1's sweep sizes: N x N x N at `SWEEP_N`, then the sweep's
+    first `SWEEP_RANDOM` random shapes with every side >= 4,096."""
     rng = np.random.default_rng(0)      # tile_quantization.run's stream:
     for _ in range(300):                # past its first band, the bf16
         rng.integers(256, 12288, 3)     # random shapes of any size
-    shapes = [(n, n, n) for n in SWEEP_N] + [
+    return [(n, n, n) for n in SWEEP_N] + [
         tuple(int(v) for v in rng.integers(4096, 12288, 3))
         for _ in range(SWEEP_RANDOM)]
+
+
+def gemm_sweep(torch, dev, card: str, chip=None) -> None:
+    """Fig. 1's sweep through the GEMM kernel at the sweep's own sizes in
+    bf16, int8 and fp32, under `chip`'s tile policies (`pick_policy`;
+    None: the simulated fleet's MXU blocks): each call's launched FLOPs
+    must equal its GemmProfile's and the closed form; 64 random rows of
+    each output are held against a float64 product of the same operands
+    (bf16 to 2^-6 of the value plus 2^-5 of the row's RMS, fp32 as
+    `gemm_path`, int8 exact); the kernel alone is timed on the padded
+    operands, beside the policy's predicted tile waste."""
+    from repro_torch.core.tile_quant import pick_policy, profiled_flops
+    from repro_torch.kernels import gemm, ops
+
+    shapes = sweep_shapes()
+    tiles = f"{chip.name} tiles" if chip is not None else "MXU tiles"
     gen = torch.Generator(device=dev).manual_seed(13)
     zero_counts(gemm.gemm_padded)
     gemm.gemm_padded.launched_flops = 0
@@ -3289,9 +3347,10 @@ def gemm_sweep(torch, dev, card: str) -> None:
         for kind in SWEEP_KINDS:
             x, y = gemm_inputs(torch, gen, dev, M, N, K, kind)
             f0 = gemm.gemm_padded.launched_flops
-            c, prof = ops.matmul(x, y)
+            c, prof = ops.matmul(x, y, chip=chip)
             launched = gemm.gemm_padded.launched_flops - f0
-            closed = profiled_flops(M, N, K, pick_policy(M, N, K, kind))
+            closed = profiled_flops(M, N, K,
+                                    pick_policy(M, N, K, kind, chip))
             check(launched == prof.profiled_flops == closed,
                   f"sweep ({M}, {N}, {K}) {kind}: launched {launched}, "
                   f"profiled {prof.profiled_flops}, closed form {closed}")
@@ -3316,7 +3375,8 @@ def gemm_sweep(torch, dev, card: str) -> None:
             yp = ops._pad_to(y, pol.tk, pol.tn * pol.cn).contiguous()
             ms = event_ms(torch, lambda: gemm.gemm_padded(xp, yp, pol), REPS)
             peak = PEAK_OPS_PER_S[kind] / 1e12
-            print(f"sweep ({M}, {N}, {K}) {kind}: policy {pol.name}, "
+            print(f"sweep ({M}, {N}, {K}) {kind}, {tiles}: policy "
+                  f"{pol.name}, "
                   f"{launched:,d} FLOPs launched == profiled == closed form "
                   f"(overhead {prof.overhead:.2%}); kernel {ms:.4f} ms, "
                   f"{launched / ms / 1e9:.1f} TFLOP/s executed "
@@ -3331,9 +3391,9 @@ def gemm_sweep(torch, dev, card: str) -> None:
                "simt": per * len(shapes)}
     check(by == want_by, f"sweep launches by variant {by}, expected "
           f"{want_by}")
-    print(f"sweep: {len(shapes)} shapes x {len(SWEEP_KINDS)} precisions, "
-          f"launches by variant {by}; {time.perf_counter() - t0:.2f} s "
-          f"({card})")
+    print(f"sweep ({tiles}): {len(shapes)} shapes x {len(SWEEP_KINDS)} "
+          f"precisions, launches by variant {by}; "
+          f"{time.perf_counter() - t0:.2f} s ({card})")
 
 
 def examples_phase(torch, dev, card: str, out: Path) -> None:
@@ -3496,7 +3556,7 @@ def ops_check(torch, dev) -> None:
             lambda: fa._launch(q, k, v, True, scale)),
         "ssd_intra": (
             lambda: torch.ops.repro_torch.ssd_intra(
-                *inputs, ssd_scan.variant(bf, Q, shd, ds)),
+                *inputs, ssd_scan.variant(bf, Q, shd, ds))[0],
             lambda: ssd_scan._launch(*inputs)),
     }
     for name, (op, direct) in calls.items():
@@ -3654,6 +3714,324 @@ def tools_check(torch, card: str) -> dict:
         f"{n} {walls[n]:.2f} s ({launches[n]} B1 launches)" for n in TOOLS)
         + f" [{card}]")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 15. the card's own counters
+# ---------------------------------------------------------------------------
+#: the counter poll's period, and the lead of each window whose readings
+#: are left out, so that every reading's own trailing average (NVML's
+#: utilization sample period is 1/6 s to 1 s) lies inside the window
+COUNTER_POLL_S, COUNTER_SETTLE_S = 0.2, 1.0
+#: each window's counted seconds (idle, and each GEMM's repeated calls)
+IDLE_S, COUNTER_WINDOW_S = 2.0, 3.0
+#: launches between synchronisations in a GEMM window
+WINDOW_BATCH = 20
+#: a true tensor source must see bf16 GEMMs at least this far above idle,
+#: and true-f32 GEMMs (no tensor pipe) below `F32_TPA_MAX`
+TPA_BF16_RISE, F32_TPA_MAX = 0.2, 0.1
+#: `fleet_live` on the card's NVML: rounds of a few seconds, the poll well
+#: inside the §IV-C window, one bucket a round
+FLEET_LIVE_ARGS = ["--transport", "pynvml", "--chip", "h100-sxm",
+                   "--interval-s", "1", "--round-s", "3", "--bucket-s",
+                   "3", "--rounds", "3", "--host", "127.0.0.1"]
+
+
+class CounterPoller:
+    """Polls GPU 0 every `interval_s` on a host thread through the port's
+    acquisition tier, `PynvmlTransport` -> `DcgmFieldBackend` (strict, as
+    `fleet_live` builds it): readings of (host time, tensor activity as
+    the transport reads it, SM clock MHz).  Connects at construction;
+    `start`/`stop` bracket each polled stretch; a failed poll is kept in
+    `errors` and stops nothing."""
+
+    def __init__(self, interval_s: float):
+        from repro_torch.telemetry.backends import (DcgmFieldBackend,
+                                                    PynvmlTransport,
+                                                    TransportError)
+        self._error = TransportError
+        self.interval_s = interval_s
+        self.transport = PynvmlTransport()
+        try:
+            self.transport.connect()
+        except TransportError as e:
+            fail(f"phase 15: NVML did not connect: {e}")
+        check(self.transport.n_devices >= 1, "phase 15: NVML sees no GPU")
+        self.backend = DcgmFieldBackend(0, self.transport, strict=True)
+        self.readings: list = []
+        self.errors: list = []
+        self._stop = threading.Event()
+        self._thread = None
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            t = time.perf_counter()
+            try:
+                tpa, clk = self.backend.poll(self.interval_s)
+                self.readings.append((t, tpa, clk))
+            except self._error as e:
+                self.errors.append(f"{t:.3f}: {e}")
+            self._stop.wait(self.interval_s)
+
+    def start(self) -> None:
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=30)
+        check(not self._thread.is_alive(), "phase 15: the poller hangs")
+
+    def close(self) -> None:
+        self.transport.close()
+
+    def window(self, t0: float, t1: float) -> dict:
+        """The readings of [t0 + the settle lead, t1]: their count, mean
+        tensor activity, mean and least SM clock, and OFU = mean(TPA·f)
+        over the H100's f_max (paper Eq. 1)."""
+        from repro_torch.core.peaks import H100_SXM
+        rows = np.array([(a, c) for t, a, c in self.readings
+                         if t0 + COUNTER_SETTLE_S <= t <= t1])
+        check(rows.size > 0, f"phase 15: no reading in a {t1 - t0:.2f} s "
+              "window")
+        tpa, clk = rows[:, 0], rows[:, 1]
+        return {"n": len(rows), "s": t1 - t0, "tpa": float(tpa.mean()),
+                "clk": float(clk.mean()), "clk_min": float(clk.min()),
+                "ofu": float((tpa * clk).mean() / H100_SXM.f_max_mhz)}
+
+
+def nvml_versions(poller) -> None:
+    """Prints the NVML library and bindings behind `poller`, and
+    whether `dcgmi` is here to confirm DCGM's tensor-active field id
+    (`dcgmi dmon -l` must list 1004 as tensor-pipe activity)."""
+    import importlib.metadata
+    import shutil
+    nv = poller.transport._nv
+    try:
+        bindings = importlib.metadata.version("nvidia-ml-py")
+    except importlib.metadata.PackageNotFoundError:
+        bindings = "unknown"
+    refused = poller.transport.refused or "none"
+    print(f"counters: NVML {nv.nvmlSystemGetNVMLVersion()}, "
+          f"nvidia-ml-py {bindings}; sources refused {refused}; tensor "
+          f"activity from {poller.transport.tpa_source}")
+    if shutil.which("dcgmi") is None:
+        print("counters: dcgmi is not on PATH; DCGM's field 1004 "
+              "(DCGM_FI_PROF_PIPE_TENSOR_ACTIVE) is not confirmed here")
+        return
+    out = subprocess.run(["dcgmi", "dmon", "-l"], capture_output=True,
+                         text=True, timeout=60).stdout
+    rows = [ln for ln in out.splitlines() if " 1004 " in f" {ln} "]
+    print(f"counters: dcgmi dmon -l lists 1004 as {rows[:1] or 'nothing'}")
+    check(rows and "tensor" in rows[0].lower(),
+          "dcgmi does not list 1004 as tensor-pipe activity")
+
+
+def gemm_window(torch, poller, x, y, kind: str, chip) -> dict:
+    """`ops.matmul` under `chip`'s tiles, called again and again for the
+    settle lead and `COUNTER_WINDOW_S` while `poller` polls: the window's
+    readings, with MFU (theoretical FLOPs over the window's time and the
+    type's peak) and Eq. 8's tile correction of the policy."""
+    from repro_torch.core.ofu import adjusted_ofu
+    from repro_torch.kernels import ops
+    (M, K), N = x.shape, y.shape[1]
+    n = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < COUNTER_SETTLE_S + COUNTER_WINDOW_S:
+        for _ in range(WINDOW_BATCH):
+            _, prof = ops.matmul(x, y, chip=chip)
+        torch.cuda.synchronize()
+        n += WINDOW_BATCH
+    t1 = time.perf_counter()
+    w = poller.window(t0, t1)
+    w["mfu"] = n * prof.theoretical_flops / w["s"] \
+        / (chip.peak_tflops(kind) * 1e12)
+    w["adj"] = adjusted_ofu(w["ofu"], prof.theoretical_flops,
+                            prof.profiled_flops)
+    w["what"] = (f"{n} x ops.matmul ({M}, {N}, {K}) {kind}, policy "
+                 f"{prof.policy.name} (executed/theoretical "
+                 f"{prof.profiled_flops / prof.theoretical_flops:.6f})")
+    return w
+
+
+def print_window(name: str, w: dict, source: str, card: str) -> None:
+    label = "TPA" if source in ("field", "gpm") else \
+        "utilization-based, not TPA"
+    mfu = w.get("mfu", 0.0)
+    print(f"counters {name} [{source}; {label}]: {w.get('what', 'idle')}; "
+          f"{w['n']} readings over {w['s']:.2f} s; mean {source} "
+          f"{w['tpa']:.4f}; SM clock mean {w['clk']:.1f}, min "
+          f"{w['clk_min']:.0f} MHz; OFU {w['ofu']:.4f}; MFU {mfu:.4f}; "
+          f"tile-corrected OFU {w.get('adj', w['ofu']):.4f}, "
+          f"{(w.get('adj', w['ofu']) - mfu) * 100:+.2f} points from MFU"
+          + (f"; {w['extra']}" if "extra" in w else "") + f" [{card}]")
+
+
+def counters_phase(torch, dev, card: str, poller, train: dict) -> dict:
+    """15. The paper's own measurement on the card.  (a) Fig. 1's sweep
+    through B2 again under the H100's tile policies (launched FLOPs ==
+    GemmProfile == closed form).  (b) `poller` (NVML through
+    `PynvmlTransport` -> `DcgmFieldBackend`) over windows bracketed by
+    `torch.cuda.synchronize()`: idle, B2 bf16, int8 and fp32 at N 8,192
+    and bf16 at one of Fig. 1's ragged shapes, each under the H100's
+    policies, and phase 12's three timed zamba2-7b train steps; each
+    window prints its tensor-activity source, mean TPA, SM clock, OFU,
+    MFU and the tile-corrected OFU's gap from MFU (paper Table II /
+    Fig. 4).  Fails unless NVML connected, every reading passed the
+    backend's range checks, every window's SM clock is non-zero and,
+    with a true tensor source, bf16 lifts TPA >= 0.2 above idle while
+    true f32 stays below 0.1.  (c) `fleet_live --transport pynvml --chip
+    h100-sxm` serves its rounds over HTTP with its backend healthy.
+    Returns the kernels' launches over the phase (B3 and B4: the train
+    window's)."""
+    from repro_torch.core.peaks import H100_SXM
+    from repro_torch.core.ofu import adjusted_ofu
+    from repro_torch.fleet.jobs import _tile_quant_factor
+    from repro_torch.flops.accounting import train_step_flops
+    from repro_torch.kernels import fleet_hist as fh
+    from repro_torch.kernels import gemm
+    t_phase = time.perf_counter()
+    zero_counts(gemm.gemm_padded)
+    fh.ofu_bucket_hist.launches = 0
+
+    # -- (a) Fig. 1's sweep under the H100's tiles --------------------------
+    gemm_sweep(torch, dev, card, chip=H100_SXM)
+    marks = {"sweep": time.perf_counter()}
+
+    # -- (b) the windows -----------------------------------------------------
+    nvml_versions(poller)
+    source = poller.transport.tpa_source
+    if source in ("field", "gpm"):
+        print(f"counters: tensor activity from NVML's {source} source")
+    else:
+        print("counters: the card exposes no tensor-activity counter to "
+              "this process; the rows below read `utilization.gpu`, so "
+              "their OFU is utilization-based, not TPA")
+    poller.start()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    time.sleep(COUNTER_SETTLE_S + IDLE_S)
+    windows = {"idle": poller.window(t0, time.perf_counter())}
+    gen = torch.Generator(device=dev).manual_seed(15)
+    n = SWEEP_N[1]
+    for kind in SWEEP_KINDS:
+        x, y = gemm_inputs(torch, gen, dev, n, n, n, kind)
+        windows[f"B2 {kind} N {n}"] = gemm_window(torch, poller, x, y, kind,
+                                                  H100_SXM)
+        del x, y
+    M, N, K = sweep_shapes()[len(SWEEP_N)]
+    x, y = gemm_inputs(torch, gen, dev, M, N, K, "bf16")
+    windows[f"B2 bf16 ragged ({M}, {N}, {K})"] = gemm_window(
+        torch, poller, x, y, "bf16", H100_SXM)
+    del x, y
+    poller.stop()
+    cfg, shape, steps = train["cfg"], train["shape"], train["steps"]
+    w = poller.window(train["t0"], train["t1"])
+    peak = H100_SXM.peak_tflops("bf16") * 1e12
+    model_fl = train_step_flops(cfg, shape, remat=False).total_mxu
+    exec_fl = train_step_flops(cfg, shape, remat=True, executed=True).total_mxu
+    w["mfu"] = steps * model_fl / w["s"] / peak
+    tq = _tile_quant_factor(cfg, H100_SXM)
+    w["adj"] = adjusted_ofu(w["ofu"], 1.0, tq)
+    mfu_exec = steps * exec_fl / w["s"] / peak
+    w["what"] = (f"{steps} of phase 12's {cfg.name} train steps (S "
+                 f"{shape.seq_len}, B {shape.global_batch}, bf16; tile "
+                 f"factor {tq:.6f})")
+    w["extra"] = (f"MFU with remat's recompute {mfu_exec:.4f}, "
+                  f"{(w['adj'] - mfu_exec) * 100:+.2f} points")
+    windows[f"train {cfg.name}"] = w
+    for name, w in windows.items():
+        print_window(name, w, source, card)
+    marks["windows"] = time.perf_counter()
+
+    check(not poller.errors, f"phase 15: polls failed the backend's checks: "
+          f"{poller.errors[:3]}")
+    check(poller.backend.healthy, "phase 15: the backend is not healthy")
+    for name, w in windows.items():
+        check(w["clk_min"] > 0, f"phase 15: {name}: the SM clock read 0")
+    if source in ("field", "gpm"):
+        idle, bf16 = windows["idle"]["tpa"], windows[f"B2 bf16 N {n}"]["tpa"]
+        f32 = windows[f"B2 fp32 N {n}"]["tpa"]
+        check(bf16 - idle >= TPA_BF16_RISE,
+              f"phase 15: bf16 GEMMs lift TPA {bf16 - idle:.4f} above idle, "
+              f"expected >= {TPA_BF16_RISE}")
+        check(f32 < F32_TPA_MAX, f"phase 15: true-f32 GEMMs read TPA "
+              f"{f32:.4f}, expected < {F32_TPA_MAX}: not the tensor pipe")
+    print(f"counters: {len(poller.readings)} readings every "
+          f"{COUNTER_POLL_S:g} s, none refused; SM clock non-zero in every "
+          f"window" + (f"; bf16 lifts TPA >= {TPA_BF16_RISE} above idle, "
+                       f"true f32 stays below {F32_TPA_MAX}"
+                       if source in ("field", "gpm") else
+                       "; the TPA checks need a tensor source and were not "
+                       "made"))
+    poller.close()
+
+    # -- (c) fleet_live on the card's NVML -----------------------------------
+    fleet_live_check(torch, card)
+    marks["fleet_live"] = time.perf_counter()
+    split, t = [], t_phase
+    for name, mark in marks.items():
+        split.append(f"{name} {mark - t:.2f}")
+        t = mark
+    print(f"counters phase 15: {time.perf_counter() - t_phase:.2f} s ("
+          + ", ".join(split) + f" s) [{card}]")
+    launches = {"gemm": gemm.gemm_padded.launches,
+                "fleet_hist": fh.ofu_bucket_hist.launches,
+                **train["launches"]}
+    check(launches["gemm"] > 0 and launches["fleet_hist"] > 0,
+          f"phase 15 launched {launches}")
+    return launches
+
+
+def fleet_live_check(torch, card: str) -> None:
+    """`python -m repro_torch.tools.fleet_live` with `FLEET_LIVE_ARGS`,
+    in this process on a thread, serving on a free local port: a
+    `FleetClient` must read its fleet series over HTTP while it runs (the
+    newest read is printed), and it must return 0 with its backend
+    healthy (its output goes to build/counters/fleet_live.log)."""
+    import socket
+    from repro_torch.serve import FleetClient
+    from repro_torch.serve.client import FleetAPIError
+    from repro_torch.tools import fleet_live
+    out = Path(__file__).resolve().parent / "build" / "counters"
+    out.mkdir(parents=True, exist_ok=True)
+    log = out / "fleet_live.log"
+    log.unlink(missing_ok=True)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    rc = []
+    t0 = time.perf_counter()
+    with quiet(log):
+        th = threading.Thread(target=lambda: rc.append(fleet_live.main(
+            FLEET_LIVE_ARGS + ["--port", str(port)])), daemon=True)
+        th.start()
+        served, deadline = None, time.perf_counter() + 120
+        while th.is_alive() and time.perf_counter() < deadline:
+            time.sleep(0.5)
+            try:                        # the newest series it serves
+                fleet = FleetClient(f"http://127.0.0.1:{port}").fleet()
+                served = fleet if fleet.get("t_s") else served
+            except (OSError, FleetAPIError):
+                pass
+        th.join(timeout=60)
+    wall = time.perf_counter() - t0
+    text = log.read_text()
+    check(not th.is_alive(), "fleet_live did not end")
+    check(rc == [0], f"fleet_live returned {rc} (see {log})")
+    check(served is not None, f"fleet_live served no fleet series over "
+          f"HTTP (see {log})")
+    health = [ln for ln in text.splitlines() if ln.startswith("backends:")]
+    check(health and health[-1].startswith("backends: 1/1 healthy"),
+          f"fleet_live's backend: {health[-1:] or 'no health line'}")
+    src = [ln for ln in text.splitlines() if ln.startswith("tensor activity")]
+    print(f"fleet_live {' '.join(FLEET_LIVE_ARGS)}: rc 0 in {wall:.2f} s; "
+          f"{src[0] if src else 'no source line'}; {health[-1]}; served "
+          f"over HTTP: {len(served['t_s'])} buckets, mean OFU "
+          + ", ".join(f"{v:.4f}" for v in served.get("mean", [])
+                      if v is not None) + f" [{card}]")
 
 
 if __name__ == "__main__":

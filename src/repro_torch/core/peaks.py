@@ -1,11 +1,12 @@
-"""Theoretical peak FLOP/s derivation (paper Eq. 5–7), TPU-native.
+"""Theoretical peak FLOP/s derivation (paper Eq. 5–7).
 
 The paper's point in §IV-D is that the *denominator* of any utilization
 metric must be derived from the physical pipeline: units × FLOPs/cycle ×
-the clock domain that pipeline actually runs at.  We reproduce that audit
-for TPU v5e (the deploy target): 4 MXUs × (128×128 MACC = 2 FLOPs each)
-× 1,500 MHz = 196.6 TFLOP/s bf16 — matching the published 197 TFLOP/s,
-exactly as Eq. 6 recovers H100's published 989 TFLOP/s.
+the clock domain that pipeline actually runs at.  `H100_SXM` is that
+audit for the card the port runs on, Eq. 6 itself: 528 tensor cores ×
+1,024 dense bf16 FLOPs a clock × 1,830 MHz = 989.4 TFLOP/s.  The TPU
+specs are the simulated fleet's chips (`DEFAULT_CHIP`): 4 MXUs × (128×128
+MACC = 2 FLOPs each) × 1,500 MHz = 196.6 TFLOP/s bf16 for a v5e.
 """
 from __future__ import annotations
 
@@ -70,5 +71,38 @@ TPU_V6E_LIKE = ChipSpec(
     precision_mult={"bf16": 1.0, "int8": 2.0, "fp8": 2.0, "fp32": 0.25},
 )
 
-CHIPS = {c.name: c for c in (TPU_V5E, TPU_V6E_LIKE)}
+#: one H100 SXM5 80 GB, the card the port runs on.  Sources: NVIDIA's
+#: H100 Tensor Core GPU data sheet (SXM column) and the NVIDIA H100 Tensor
+#: Core GPU Architecture whitepaper (Hopper).
+_H100_SMS = 132                 # whitepaper: SMs of the SXM5 part
+_H100_SM_FP32_LANES = 128       # whitepaper: FP32 cores an SM
+H100_SXM = ChipSpec(
+    name="h100-sxm",
+    # whitepaper: 4 fourth-generation tensor cores an SM, each 512 dense
+    # bf16 FMAs (1,024 FLOPs) a clock, here as a 16 x 32 MACC array
+    num_mxu=4 * _H100_SMS, mxu_rows=16, mxu_cols=32, flops_per_macc=2,
+    f_max_mhz=1830.0,           # the clock the data sheet's 989.4 TFLOP/s
+                                # dense bf16 takes (paper Eq. 6)
+    f_sm_max_mhz=1980.0,        # SM boost clock, what NVML's SM clock reads
+    hbm_gbps=3350.0,            # data sheet: HBM3 3.35 TB/s
+    ici_gbps=25.0,              # NVLink 4: 18 links, 900 GB/s both ways
+    ici_links=18,               # together (data sheet), 25 GB/s a link
+                                # each way
+    hbm_gib=80.0,               # data sheet: 80 GB
+    precision_mult={
+        "bf16": 1.0,
+        "fp16": 1.0,
+        "int8": 2.0,            # data sheet: 1,979 TOP/s dense
+        "fp8": 2.0,             # data sheet: 1,979 TFLOP/s dense
+        "tf32": 0.5,            # data sheet: 494.7 TFLOP/s dense
+        # true f32 on the SMs' FP32 lanes at the SM clock (the data
+        # sheet's 67 TFLOP/s): what B2's f32 path and the SIMT kernels
+        # run.  It sends nothing to the tensor pipe, so a true-f32 job's
+        # TPA is ~0 (the paper's undercount of non-tensor work).
+        "fp32": (_H100_SMS * _H100_SM_FP32_LANES * 2 * 1980.0)
+                / (4 * _H100_SMS * 16 * 32 * 2 * 1830.0),
+    },
+)
+
+CHIPS = {c.name: c for c in (TPU_V5E, TPU_V6E_LIKE, H100_SXM)}
 DEFAULT_CHIP = TPU_V5E

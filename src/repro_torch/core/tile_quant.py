@@ -1,16 +1,18 @@
-"""Tile quantization (paper Eq. 2–4), TPU/Pallas-native.
+"""Tile quantization (paper Eq. 2–4).
 
-GEMM grids pad (M, N, K) up to BlockSpec tile multiples (first ceiling) and
-— on megacore parts — the tile grid is again rounded up to a whole number of
-core clusters (second ceiling), exactly Eq. 4's two-level hierarchy.  Because
-a Pallas grid is static, `profiled_flops()` here is EXACT for our kernel (the
-closed-form-vs-grid test asserts 0-FLOP error, cf. the paper's <1000-FLOP
-nvJet match).  For XLA-chosen dot lowerings the tiling is opaque (the paper's
-XMMA/CUTLASS caveat); there we fall back on compiled cost_analysis().
+GEMM grids pad (M, N, K) up to tile multiples (first ceiling) and the tile
+grid is again rounded up to a whole number of core clusters (second
+ceiling), exactly Eq. 4's two-level hierarchy.  Because the port's GEMM
+(`kernels/gemm.py`) walks exactly the padded grid, `profiled_flops()` here
+is EXACT for it (the closed-form-vs-grid test asserts 0-FLOP error, cf. the
+paper's <1000-FLOP nvJet match).
 
 The block-shape policy below plays the role of cuBLAS kernel selection: an
 intermediate library layer, invisible to the application, that materially
-changes executed FLOPs (paper §IV-A).
+changes executed FLOPs (paper §IV-A).  `pick_policy` chooses among the
+chip's policies: the H100's are the CTA tiles the port's kernel walks on
+the card; every other chip, and no chip, takes the MXU block policies of
+the simulated TPU fleet.
 """
 from __future__ import annotations
 
@@ -62,7 +64,8 @@ def overhead(M: int, N: int, K: int, policy: TilePolicy) -> float:
 
 
 # ---------------------------------------------------------------------------
-# block-shape policy picker — our nvMatmulHeuristics analogue
+# the MXU block-shape policies of the simulated TPU fleet — our
+# nvMatmulHeuristics analogue
 # ---------------------------------------------------------------------------
 # VMEM budget: ~128 KiB per buffer slot is a comfortable v5e working set for
 # a double-buffered 3-operand GEMM tile; MXU wants dims in multiples of 128
@@ -87,15 +90,54 @@ _POLICIES = {
 _TILE_PENALTY = {128: 1.08, 256: 1.02, 512: 1.00}
 
 
-def pick_policy(M: int, N: int, K: int, dtype: str = "bf16") -> TilePolicy:
+# ---------------------------------------------------------------------------
+# the H100's policies: the CTA tiles of the port's GEMM on the card
+# ---------------------------------------------------------------------------
+# `kernels/gemm.py` `WGMMA_TILES` and `wgmma_tile_n`: bf16 blocks of 128
+# rows by 128 or 256 columns with 64-deep (128-byte) K stages, int8 128 x
+# 128 with 128-deep stages; f32 the SIMT kernel's 128 x 128 blocks of
+# 16-deep K slabs (`csrc/gemm.cu` kFM, kFN, kFK), which it zero-fills past
+# the edges, so a grid padded to them is exactly what it executes.  The
+# kernel launches no thread-block clusters, so Eq. 4's (C_M, C_N) is
+# (1, 1).  Wave quantization over the 132 SMs costs time but executes no
+# FLOPs, so it stays out of `profiled_flops`.
+_H100_POLICIES = {
+    "wgmma_bf16_128": TilePolicy(128, 128, 64, name="wgmma_bf16_128"),
+    "wgmma_bf16_256": TilePolicy(128, 256, 64, name="wgmma_bf16_256"),
+    "wgmma_s8_128": TilePolicy(128, 128, 128, name="wgmma_s8_128"),
+    "simt_f32_128": TilePolicy(128, 128, 16, name="simt_f32_128"),
+}
+
+
+def _pick_h100(M: int, N: int, K: int, dtype: str) -> TilePolicy:
+    """The tile the H100 kernel walks for `dtype`: int8 and f32 have one;
+    bf16 takes 256 columns where N padded to 128 divides by 256 (what
+    `wgmma_tile_n` picks), else 128, so both pad N to 128."""
+    if dtype == "int8":
+        return _H100_POLICIES["wgmma_s8_128"]
+    if dtype == "fp32":
+        return _H100_POLICIES["simt_f32_128"]
+    if dtype != "bf16":
+        raise ValueError(f"the H100's GEMM has no {dtype!r} path "
+                         "(bf16, int8, fp32)")
+    wide = _ceil_to(N, 128) % 256 == 0
+    return _H100_POLICIES["wgmma_bf16_256" if wide else "wgmma_bf16_128"]
+
+
+def pick_policy(M: int, N: int, K: int, dtype: str = "bf16",
+                chip=None) -> TilePolicy:
     """Shape/precision-driven policy choice (the library layer of §IV-A).
 
-    Evaluates the candidate BlockSpec set and picks the minimum of
-    (executed FLOPs × tile-efficiency penalty) — bigger tiles for big
-    aligned problems, smaller tiles when edge padding would dominate,
-    precision-dependent candidate sets (fp32 runs 3-pass emulation and is
-    capped at 128³ tiles; int8 gets a deeper-K candidate).
+    With `chip` the H100 (`core.peaks.H100_SXM`): the tile its kernel
+    walks (`_pick_h100`).  Otherwise the MXU policies: evaluates the
+    candidate BlockSpec set and picks the minimum of (executed FLOPs ×
+    tile-efficiency penalty) — bigger tiles for big aligned problems,
+    smaller tiles when edge padding would dominate, precision-dependent
+    candidate sets (fp32 runs 3-pass emulation and is capped at 128³
+    tiles; int8 gets a deeper-K candidate).
     """
+    if chip is not None and chip.name == "h100-sxm":
+        return _pick_h100(M, N, K, dtype)
     if dtype == "fp32":
         return _POLICIES["mxu_128_fp32"]
     cands = ["mxu_128", "mxu_256", "mxu_512"]
@@ -114,9 +156,10 @@ def pick_policy(M: int, N: int, K: int, dtype: str = "bf16") -> TilePolicy:
 
 def correction_factor(M: int, N: int, K: int,
                       policy: TilePolicy | None = None,
-                      dtype: str = "bf16") -> float:
-    """FLOPs_theoretical / FLOPs_profiled — the Eq. 8 adjustment term."""
-    policy = policy or pick_policy(M, N, K, dtype)
+                      dtype: str = "bf16", chip=None) -> float:
+    """FLOPs_theoretical / FLOPs_profiled — the Eq. 8 adjustment term,
+    under `policy` or else `chip`'s pick (`pick_policy`)."""
+    policy = policy or pick_policy(M, N, K, dtype, chip)
     return theoretical_flops(M, N, K) / profiled_flops(M, N, K, policy)
 
 

@@ -294,6 +294,9 @@ class CorrelationConfig:
     min_buckets: int = 1
     ofu_floor: float = DEFAULT_OFU_FLOOR
     window: int = 8
+    #: the joined jobs' chip, whose tile policies Eq. 8's correction
+    #: takes (`tile_quant_factor`)
+    chip: ChipSpec = DEFAULT_CHIP
 
     def __post_init__(self):
         if self.ratio_high <= 1.0:
@@ -318,7 +321,7 @@ def _job_join_stats(mfu_roll, roll, job_id, cfg):
     if idx.size < cfg.min_buckets:
         return None
     meta = roll.job_meta(job_id) or {}
-    tq = tile_quant_factor(meta.get("arch", "unknown"))
+    tq = tile_quant_factor(meta.get("arch", "unknown"), cfg.chip)
     mfu = float(mval.mean())
     ofu = float(oval.mean())
     ofu_adj = ofu / tq

@@ -76,10 +76,11 @@ class JobTelemetry:
 
 
 def _tile_quant_factor(cfg, chip: ChipSpec) -> float:
-    """Mean executed/theoretical FLOPs ratio for the job's dominant GEMMs."""
+    """Mean executed/theoretical FLOPs ratio for the job's dominant GEMMs,
+    under `chip`'s tile policies (`pick_policy`)."""
     d = cfg.d_model
     shapes = [(4096, d, d), (4096, cfg.d_ff or d, d)]
-    f = [profiled_flops(m, n, k, pick_policy(m, n, k))
+    f = [profiled_flops(m, n, k, pick_policy(m, n, k, chip=chip))
          / theoretical_flops(m, n, k) for m, n, k in shapes]
     return float(np.mean(f))
 

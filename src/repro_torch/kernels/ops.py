@@ -56,17 +56,20 @@ def _pad_to(x: torch.Tensor, m0: int, m1: int) -> torch.Tensor:
 
 def matmul(x: torch.Tensor, y: torch.Tensor, *,
            policy: Optional[TilePolicy] = None,
-           dtype_name: Optional[str] = None
+           dtype_name: Optional[str] = None, chip=None
            ) -> tuple[torch.Tensor, GemmProfile]:
     """C = x @ y through the tiled GEMM, with tile-quantization padding.
 
-    Returns (C, GemmProfile); profile.profiled_flops is exact: it is the
-    work the kernel executes on the padded operands.
+    The tiles are `policy`'s, else `pick_policy`'s for `chip` (a
+    `core.peaks.ChipSpec`; the H100's are the tiles the card's kernel
+    walks, none the simulated fleet's MXU blocks).  Returns (C,
+    GemmProfile); profile.profiled_flops is exact: it is the work the
+    kernel executes on the padded operands.
     """
     M, K = x.shape
     _, N = y.shape
     dtype_name = dtype_name or _DTYPE_NAMES.get(x.dtype, "bf16")
-    policy = policy or pick_policy(M, N, K, dtype_name)
+    policy = policy or pick_policy(M, N, K, dtype_name, chip)
 
     xp = _pad_to(x, policy.tm * policy.cm, policy.tk).contiguous()
     yp = _pad_to(y, policy.tk, policy.tn * policy.cn).contiguous()

@@ -18,10 +18,11 @@ PyTorch (`ops.ssd`).
 
 The launch is the op `torch.ops.repro_torch.ssd_intra`, so a trace on
 fake CUDA tensors (`launch.hlo_analysis.analyze_step`, the dry run)
-passes through it: its fake version (also its meta kernel) allocates
-the output the launch allocates, and its FLOP formula counts the causal
-pairs of each chunk and head (`ssd_flops`).  A fake call launches
-nothing and counts nothing.
+passes through it: the op returns the output and the scratch the launch
+wrote (empty on the tensor-core path), so its fake version (also its
+meta kernel), which allocates both, shows a trace every byte the launch
+allocates; its FLOP formula counts the causal pairs of each chunk and
+head (`ssd_flops`).  A fake call launches nothing and counts nothing.
 
 B/C arrive in their groups: head h reads group h // (nh / g), where the
 reference takes them broadcast to one copy a head (g = nh here).
@@ -94,8 +95,9 @@ def simt_scratch(BC: int, Q: int, g: int) -> int:
 
 def _kernel_call(x, dt, dacs, b, c, y):
     """The C function of `variant`'s kernel, its arguments, writing y, for
-    validated CUDA inputs, and the scratch they name (None, or the SIMT
-    kernel's C·Bᵀ tiles), which must outlive every launch with them."""
+    validated CUDA inputs, and the scratch they name (the SIMT kernel's
+    C·Bᵀ tiles; 0 values for the tensor-core kernel), which must outlive
+    every launch with them."""
     BC, Q, nh, hd = x.shape
     _, _, g, ds = b.shape
     ptrs = (x.data_ptr(), dt.data_ptr(), dacs.data_ptr(), b.data_ptr(),
@@ -103,39 +105,50 @@ def _kernel_call(x, dt, dacs, b, c, y):
     tail = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     if variant(x.dtype, Q, hd, ds) == "wgmma_bf16":
         return _kernel("ssd_intra_bf16_wgmma"), (
-            *ptrs, BC, Q, nh, hd, g, ds, wgmma_heads(hd, nh, g), *tail), None
+            *ptrs, BC, Q, nh, hd, g, ds, wgmma_heads(hd, nh, g), *tail), \
+            x.new_empty(0, dtype=torch.float32)
     cb = torch.empty(simt_scratch(BC, Q, g), dtype=torch.float32,
                      device=x.device)
     return _kernel("ssd_intra"), (_CODES[x.dtype], *ptrs, cb.data_ptr(), BC,
                                   Q, nh, hd, g, ds, simt_heads(hd), *tail), cb
 
 
-def _launch(x, dt, dacs, b, c) -> torch.Tensor:
-    """One launch of `variant`'s kernel on validated CUDA inputs; no
-    count."""
+def _launch_with_scratch(x, dt, dacs, b, c) -> tuple:
+    """One launch of `variant`'s kernel on validated CUDA inputs, no
+    count: its output and the scratch it wrote (`_kernel_call`)."""
     y = torch.empty_like(x)
-    fn, args, _scratch = _kernel_call(x, dt, dacs, b, c, y)
+    fn, args, scratch = _kernel_call(x, dt, dacs, b, c, y)
     err = fn(*args)
     if err:
         raise RuntimeError(f"ssd_intra kernel launch failed: CUDA error {err}")
-    return y
+    return y, scratch
+
+
+def _launch(x, dt, dacs, b, c) -> torch.Tensor:
+    """One launch of `variant`'s kernel on validated CUDA inputs; no
+    count."""
+    return _launch_with_scratch(x, dt, dacs, b, c)[0]
 
 
 @torch.library.custom_op("repro_torch::ssd_intra", mutates_args=())
 def ssd_intra_op(x: torch.Tensor, dt: torch.Tensor, dacs: torch.Tensor,
-                 b: torch.Tensor, c: torch.Tensor, path: str) -> torch.Tensor:
+                 b: torch.Tensor, c: torch.Tensor,
+                 path: str) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch of `path`'s kernel (`variant`) on validated CUDA inputs,
-    as an op; no count.  The TMA loads' alignment is checked here, where
-    the tensors have addresses (a fake tensor has none)."""
+    as an op; no count: (output, scratch) as `_launch_with_scratch`.  The
+    TMA loads' alignment is checked here, where the tensors have
+    addresses (a fake tensor has none)."""
     if path == "wgmma_bf16" and any(t.data_ptr() % 16 for t in (x, b, c)):
         raise ValueError("the bf16 path takes, for its TMA loads, "
                          "16-byte-aligned x, b and c")
-    return _launch(x, dt, dacs, b, c)
+    return _launch_with_scratch(x, dt, dacs, b, c)
 
 
 @ssd_intra_op.register_fake
 def _(x, dt, dacs, b, c, path):
-    return torch.empty_like(x)
+    BC, Q = x.shape[:2]
+    n = 0 if path == "wgmma_bf16" else simt_scratch(BC, Q, b.shape[2])
+    return torch.empty_like(x), x.new_empty(n, dtype=torch.float32)
 
 
 def ssd_flops(x_shape, b_shape) -> int:
@@ -198,7 +211,7 @@ def ssd_intra_kernel(x, dt, dacs, b, c, *, head_block: int = 8):
     path = variant(x.dtype, Q, hd, ds)
     if x.numel() == 0:
         return torch.empty_like(x)
-    y = ssd_intra_op(x, dt, dacs, b, c, path)
+    y, _scratch = ssd_intra_op(x, dt, dacs, b, c, path)
     if is_fake(y) or y.is_meta:
         return y
     ssd_intra_kernel.launches += 1

@@ -27,7 +27,8 @@ Transports:
     installed (gated import; clear `TransportError` otherwise).
     SM clock maps to `nvmlDeviceGetClockInfo(NVML_CLOCK_SM)`; tensor
     activity to the profiling field when the driver exposes it, else
-    documented fallback to coarse GPU utilization.
+    NVML's GPM tensor metric, else documented fallback to coarse GPU
+    utilization, and the transport records which (`tpa_source`).
 """
 from __future__ import annotations
 
@@ -269,19 +270,38 @@ class DcgmiTransport(FieldTransport):
 class PynvmlTransport(FieldTransport):
     """Field transport over the `pynvml` NVML bindings.
 
-    Gated on the module being importable (this container does not ship
-    it) — `connect()` raises a clear `TransportError` otherwise, which
-    `tools/fleet_live.py` turns into actionable CLI output.  Tensor
-    activity uses the NVML profiling field when the driver exposes one;
-    otherwise falls back to `nvmlDeviceGetUtilizationRates().gpu`
-    (coarse "any SM busy" utilization — documented approximation, the
-    paper's §IV point about why PIPE_TENSOR_ACTIVE is the right field).
+    Gated on the module being importable — `connect()` raises a clear
+    `TransportError` otherwise, which `tools/fleet_live.py` turns into
+    actionable CLI output.  The SM clock is
+    `nvmlDeviceGetClockInfo(NVML_CLOCK_SM)`.  Tensor activity comes from
+    the first of these sources that answers on each GPU at `connect()`:
+
+      * ``field``: the bindings' `NVML_FI_PROF_PIPE_TENSOR_ACTIVE`
+        through `nvmlDeviceGetFieldValues`, where they define it;
+      * ``gpm``: NVML's GPM metric `NVML_GPM_METRIC_ANY_TENSOR_UTIL`,
+        NVML's tensor-activity profiling metric, a percentage
+        averaged over the interval between two samples (DCGM's window
+        semantics): the transport keeps each GPU's last sample, takes
+        one at `connect()`, and a read returns the metric / 100 over the
+        interval since the previous read;
+      * ``utilization``: `nvmlDeviceGetUtilizationRates().gpu` / 100,
+        the share of time any kernel ran — coarse "GPU busy", NOT tensor
+        activity (the paper's §IV point about why PIPE_TENSOR_ACTIVE is
+        the right field).
+
+    `tpa_sources` holds each GPU's source, `tpa_source` their one name
+    (names joined by "," if the GPUs differ), and `refused` why each
+    source above it did not answer.  Every NVML error raises
+    `TransportError`.
     """
 
     def __init__(self, *, clock=time.monotonic):
         self._clock = clock
         self._nv = None
         self._handles: list = []
+        self.tpa_sources: list = []
+        self.refused: dict = {}
+        self._gpm_prev: dict = {}        # gpu -> its last GPM sample
 
     def connect(self) -> None:
         try:
@@ -290,29 +310,112 @@ class PynvmlTransport(FieldTransport):
             raise TransportError(
                 "the 'pynvml' module is not installed; install "
                 "nvidia-ml-py or use --transport dcgmi/fake") from e
+        self.close()
         try:
             pynvml.nvmlInit()
             count = pynvml.nvmlDeviceGetCount()
             self._handles = [pynvml.nvmlDeviceGetHandleByIndex(i)
                              for i in range(count)]
-        except pynvml.NVMLError as e:   # pragma: no cover - hardware only
+        except pynvml.NVMLError as e:
             raise TransportError(f"NVML init failed: {e}") from e
         self._nv = pynvml
+        self.refused = {}
+        self.tpa_sources = [self._pick_source(gpu)
+                            for gpu in range(len(self._handles))]
+
+    def _pick_source(self, gpu: int) -> str:
+        """The first tensor-activity source that answers on `gpu` (a GPM
+        source keeps the sample it took)."""
+        nv, h = self._nv, self._handles[gpu]
+        fid = getattr(nv, "NVML_FI_PROF_PIPE_TENSOR_ACTIVE", None)
+        if fid is None:
+            self.refused["field"] = ("the bindings define no "
+                                     "NVML_FI_PROF_PIPE_TENSOR_ACTIVE")
+        else:
+            try:
+                self._field(h, fid)
+                return "field"
+            except (nv.NVMLError, TransportError) as e:
+                self.refused["field"] = f"{type(e).__name__}: {e}"
+        if not hasattr(nv, "nvmlGpmSampleGet"):
+            self.refused["gpm"] = "the bindings have no GPM functions"
+            return "utilization"
+        try:
+            if not nv.nvmlGpmQueryDeviceSupport(h).isSupportedDevice:
+                self.refused["gpm"] = "nvmlGpmQueryDeviceSupport: " \
+                    "not a GPM device"
+                return "utilization"
+            self._gpm_prev[gpu] = self._gpm_sample(h)
+            return "gpm"
+        except nv.NVMLError as e:
+            self.refused["gpm"] = f"{type(e).__name__}: {e}"
+            return "utilization"
+
+    @property
+    def tpa_source(self) -> str:
+        """Where tensor activity is read: "field", "gpm" or
+        "utilization", or the GPUs' sources joined by "," where they
+        differ."""
+        return ",".join(sorted(set(self.tpa_sources)))
+
+    def _field(self, h, fid) -> float:
+        (val,) = self._nv.nvmlDeviceGetFieldValues(h, [fid])
+        if val.nvmlReturn != 0:
+            raise TransportError(f"NVML field {fid} returned "
+                                 f"{val.nvmlReturn}")
+        return float(val.value.dVal)
+
+    def _gpm_sample(self, h):
+        nv = self._nv
+        sample = nv.nvmlGpmSampleAlloc()
+        try:
+            nv.nvmlGpmSampleGet(h, sample)
+        except nv.NVMLError:
+            nv.nvmlGpmSampleFree(sample)
+            raise
+        return sample
+
+    def _gpm_tensor_util(self, gpu: int, h) -> float:
+        """ANY_TENSOR_UTIL / 100 over the interval since `gpu`'s last
+        sample, which this read's sample replaces."""
+        nv = self._nv
+        sample = self._gpm_sample(h)
+        prev, self._gpm_prev[gpu] = self._gpm_prev[gpu], sample
+        try:
+            get = nv.c_nvmlGpmMetricsGet_t()
+            get.version = nv.NVML_GPM_METRICS_GET_VERSION
+            get.numMetrics = 1
+            get.sample1, get.sample2 = prev, sample
+            get.metrics[0].metricId = nv.NVML_GPM_METRIC_ANY_TENSOR_UTIL
+            nv.nvmlGpmMetricsGet(get)
+        finally:
+            nv.nvmlGpmSampleFree(prev)
+        metric = get.metrics[0]
+        if metric.nvmlReturn != 0:
+            raise TransportError(f"NVML GPM tensor metric returned "
+                                 f"{metric.nvmlReturn}")
+        return float(metric.value) / 100.0
 
     def close(self) -> None:
-        if self._nv is not None:        # pragma: no cover - hardware only
+        nv, self._nv = self._nv, None
+        if nv is not None:
+            for sample in self._gpm_prev.values():
+                try:
+                    nv.nvmlGpmSampleFree(sample)
+                except nv.NVMLError:
+                    pass
             try:
-                self._nv.nvmlShutdown()
-            except Exception:
+                nv.nvmlShutdown()
+            except nv.NVMLError:
                 pass
-        self._nv = None
+        self._gpm_prev = {}
         self._handles = []
 
     @property
     def n_devices(self) -> int:
         return len(self._handles)
 
-    def read(self, gpu: int,     # pragma: no cover - hardware only
+    def read(self, gpu: int,
              field_ids: Sequence[int]) -> Dict[int, FieldSample]:
         nv = self._nv
         if nv is None:
@@ -326,22 +429,22 @@ class PynvmlTransport(FieldTransport):
         try:
             for f in field_ids:
                 if f == DCGM_FI_DEV_SM_CLOCK:
-                    out[f] = FieldSample(
-                        float(nv.nvmlDeviceGetClockInfo(
-                            h, nv.NVML_CLOCK_SM)), t_s)
+                    value = float(nv.nvmlDeviceGetClockInfo(
+                        h, nv.NVML_CLOCK_SM))
                 elif f == DCGM_FI_PROF_PIPE_TENSOR_ACTIVE:
-                    fid = getattr(nv, "NVML_FI_PROF_PIPE_TENSOR_ACTIVE",
-                                  None)
-                    if fid is not None:
-                        (val,) = nv.nvmlDeviceGetFieldValues(h, [fid])
-                        out[f] = FieldSample(
-                            float(val.value.dVal), t_s)
+                    src = self.tpa_sources[gpu]
+                    if src == "field":
+                        value = self._field(
+                            h, nv.NVML_FI_PROF_PIPE_TENSOR_ACTIVE)
+                    elif src == "gpm":
+                        value = self._gpm_tensor_util(gpu, h)
                     else:
-                        util = nv.nvmlDeviceGetUtilizationRates(h)
-                        out[f] = FieldSample(float(util.gpu) / 100.0, t_s)
+                        value = float(
+                            nv.nvmlDeviceGetUtilizationRates(h).gpu) / 100.0
                 else:
                     raise TransportError(
                         f"unsupported field id {f} for NVML transport")
+                out[f] = FieldSample(value, t_s)
         except nv.NVMLError as e:
             raise TransportError(f"NVML read failed on GPU {gpu}: "
                                  f"{e}") from e

@@ -19,9 +19,12 @@ from typing import Dict, Sequence
 
 #: the two DCGM field ids OFU consumes (paper §IV) — SM clock is an
 #: instantaneous point sample, tensor-pipe activity a hardware average
-#: over at most `MAX_HW_AVG_WINDOW_S`
+#: over at most `MAX_HW_AVG_WINDOW_S`.  The ids are DCGM's own
+#: (`dcgm_fields.h`): 1004 is DCGM_FI_PROF_PIPE_TENSOR_ACTIVE; 1002 is
+#: DCGM_FI_PROF_SM_ACTIVE, the SM activity the paper's §IV warns against
+#: reading as tensor activity.
 DCGM_FI_DEV_SM_CLOCK = 100
-DCGM_FI_PROF_PIPE_TENSOR_ACTIVE = 1002
+DCGM_FI_PROF_PIPE_TENSOR_ACTIVE = 1004
 
 
 class TransportError(RuntimeError):

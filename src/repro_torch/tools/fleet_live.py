@@ -16,8 +16,10 @@ histogram kernel ingests it; the fake transport simulates there too.
     python -m repro_torch.tools.fleet_live --transport dcgmi \
         --interval-s 10 --round-s 60 --port 8080
 
-    # NVML bindings (requires the pynvml module)
-    python -m repro_torch.tools.fleet_live --transport pynvml
+    # NVML bindings (requires the pynvml module) on one H100: OFU over
+    # the card's own f_max
+    python -m repro_torch.tools.fleet_live --transport pynvml \
+        --chip h100-sxm --interval-s 1 --round-s 5 --bucket-s 5 --rounds 3
 
 `--self-check` is the gate for the whole acquisition tier: it runs the
 fake-transport pipeline end-to-end over real HTTP and asserts the
@@ -38,6 +40,7 @@ import sys
 import numpy as np
 
 from repro_torch._device import resolve_device
+from repro_torch.core.peaks import CHIPS, DEFAULT_CHIP
 from repro_torch.fleet.collector import Collector, CollectorConfig, JobStream
 from repro_torch.serve import (FleetAPIServer, FleetClient, ServiceDaemon,
                                SimClock)
@@ -101,12 +104,19 @@ def serve(args) -> int:
         clk = SimClock()
         daemon_kw.update(clock=clk.monotonic, sleep=clk.sleep)
     daemon = ServiceDaemon(Collector(
-        [JobStream(args.job_id, DeviceSource(source, device))], config),
+        [JobStream(args.job_id, DeviceSource(source, device),
+                   chip=CHIPS[args.chip])], config),
         **daemon_kw)
     with daemon, FleetAPIServer(daemon.store, host=args.host,
                                 port=args.port) as server:
         print(f"live: {n} device(s) via {args.transport} transport, "
-              f"interval {args.interval_s:g}s, round {args.round_s:g}s")
+              f"interval {args.interval_s:g}s, round {args.round_s:g}s, "
+              f"OFU over {args.chip}'s f_max")
+        source_name = getattr(transport, "tpa_source", None)
+        if source_name is not None:
+            print(f"tensor activity from NVML: {source_name}"
+                  + (" (GPU utilization, NOT tensor-pipe activity)"
+                     if source_name == "utilization" else ""))
         print(f"serving on {server.url}  "
               f"({server.url}/v1/fleet, {server.url}/dashboard)")
         try:
@@ -257,6 +267,9 @@ def main(argv=None) -> int:
     ap.add_argument("--degraded", action="store_true",
                     help="allow >30s intervals with a warning instead "
                     "of refusing (§IV-C strict=False)")
+    ap.add_argument("--chip", default=DEFAULT_CHIP.name, choices=sorted(CHIPS),
+                    help="the monitored devices' chip, whose f_max OFU "
+                    "divides by (default %(default)s)")
     ap.add_argument("--device", default=None,
                     help="torch device of the ingest and the fake "
                     "transport's simulation; the card when omitted")

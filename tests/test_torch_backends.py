@@ -13,6 +13,8 @@ simulator's host-copied chunks serves.  The `gpu` case runs the same
 with the engine on the card and holds the card-ingest comparison.
 """
 import os
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -178,12 +180,216 @@ def test_pynvml_connect_is_gated_on_module():
         PynvmlTransport().connect()
 
 
+def test_tensor_active_is_dcgms_field_1004_in_the_dmon_request():
+    """`dcgm_fields.h`: DCGM_FI_PROF_PIPE_TENSOR_ACTIVE is 1004 (1002 is
+    DCGM_FI_PROF_SM_ACTIVE); `dcgmi dmon -e` asks for it first."""
+    assert DCGM_FI_PROF_PIPE_TENSOR_ACTIVE == 1004
+    assert DCGM_FI_DEV_SM_CLOCK == 100
+    r = _Runner(["GPU 0  0.5  1500\n"])
+    seen = []
+    t = DcgmiTransport(runner=lambda cmd: seen.append(cmd) or r(cmd))
+    t.connect()
+    assert t.read(0, (TPA, CLK))[TPA].value == 0.5
+    (dmon,) = [c for c in seen if "dmon" in c]
+    assert dmon[dmon.index("-e") + 1] == "1004,100"
+
+
+# ---------------------------------------------------------------------------
+# PynvmlTransport against a fake `pynvml` module
+# ---------------------------------------------------------------------------
+class _NVMLError(Exception):
+    def __init__(self, value):
+        super().__init__(f"NVML error {value}")
+        self.value = value
+
+
+class _MetricsGet:
+    """`c_nvmlGpmMetricsGet_t`'s fields."""
+
+    def __init__(self):
+        self.version = self.numMetrics = 0
+        self.sample1 = self.sample2 = None
+        self.metrics = [types.SimpleNamespace(metricId=0, nvmlReturn=0,
+                                              value=0.0) for _ in range(4)]
+
+
+def _fake_nvml(*, field=None, gpm=None, gpm_supported=True, util=(37,),
+               clock=(1755,), fail=()):
+    """A `pynvml` stand-in for one GPU.  `field`: the profiling field's
+    (nvmlReturn, value), or None for bindings without it; `gpm`: the
+    cumulative (seconds, tensor-busy seconds) each GPM sample takes in
+    turn, or None for bindings without GPM (a string: the NVML error
+    every sample raises); `util` / `clock`: successive readings; `fail`:
+    the calls that raise `NVMLError`."""
+    nv = types.ModuleType("pynvml")
+    nv.NVMLError = _NVMLError
+    nv.NVML_CLOCK_SM = 1
+    nv.calls = {"init": 0, "shutdown": 0, "alloc": 0, "free": 0}
+    reads = {"util": list(util), "clock": list(clock)}
+
+    def maybe_fail(name):
+        if name in fail:
+            raise _NVMLError(999)
+
+    def init():
+        maybe_fail("init")
+        nv.calls["init"] += 1
+
+    def shutdown():
+        nv.calls["shutdown"] += 1
+
+    def next_of(key):
+        vals = reads[key]
+        return vals.pop(0) if len(vals) > 1 else vals[0]
+
+    def clock_info(h, which):
+        maybe_fail("clock")
+        assert which == nv.NVML_CLOCK_SM
+        return next_of("clock")
+
+    def utilization(h):
+        maybe_fail("util")
+        return types.SimpleNamespace(gpu=next_of("util"), memory=0)
+
+    nv.nvmlInit, nv.nvmlShutdown = init, shutdown
+    nv.nvmlDeviceGetCount = lambda: 1
+    nv.nvmlDeviceGetHandleByIndex = lambda i: ("gpu", i)
+    nv.nvmlDeviceGetClockInfo = clock_info
+    nv.nvmlDeviceGetUtilizationRates = utilization
+    if field is not None:
+        nv.NVML_FI_PROF_PIPE_TENSOR_ACTIVE = 200
+
+        def field_values(h, ids):
+            maybe_fail("field")
+            assert ids == [200]
+            ret, value = field
+            return [types.SimpleNamespace(
+                nvmlReturn=ret, value=types.SimpleNamespace(dVal=value))]
+        nv.nvmlDeviceGetFieldValues = field_values
+    if gpm is not None:
+        stamps = list(gpm) if not isinstance(gpm, str) else []
+        nv.NVML_GPM_METRICS_GET_VERSION = 1
+        nv.NVML_GPM_METRIC_ANY_TENSOR_UTIL = 5
+        nv.c_nvmlGpmMetricsGet_t = _MetricsGet
+
+        def alloc():
+            nv.calls["alloc"] += 1
+            return types.SimpleNamespace(stamp=None, freed=False)
+
+        def sample_get(h, sample):
+            if isinstance(gpm, str):
+                raise _NVMLError(gpm)
+            sample.stamp = stamps.pop(0)
+
+        def sample_free(sample):
+            assert not sample.freed
+            sample.freed = True
+            nv.calls["free"] += 1
+
+        def metrics_get(get):
+            maybe_fail("metrics")
+            assert get.version == 1 and get.numMetrics == 1
+            assert get.metrics[0].metricId == 5
+            (t1, b1), (t2, b2) = get.sample1.stamp, get.sample2.stamp
+            get.metrics[0].value = 100.0 * (b2 - b1) / (t2 - t1)
+            return get
+        nv.nvmlGpmQueryDeviceSupport = lambda h: types.SimpleNamespace(
+            isSupportedDevice=int(gpm_supported))
+        nv.nvmlGpmSampleAlloc = alloc
+        nv.nvmlGpmSampleGet = sample_get
+        nv.nvmlGpmSampleFree = sample_free
+        nv.nvmlGpmMetricsGet = metrics_get
+    return nv
+
+
+@pytest.fixture
+def nvml(monkeypatch):
+    """Puts a `_fake_nvml(**kw)` in `sys.modules` as `pynvml`."""
+    def put(**kw):
+        nv = _fake_nvml(**kw)
+        monkeypatch.setitem(sys.modules, "pynvml", nv)
+        return nv
+    return put
+
+
+def test_pynvml_reads_the_profiling_field(nvml):
+    nvml(field=(0, 0.625), gpm=[(0.0, 0.0)], clock=(1830,))
+    t = PynvmlTransport(clock=lambda: 5.0)
+    t.connect()
+    assert (t.tpa_source, t.tpa_sources, t.refused) == ("field", ["field"],
+                                                        {})
+    got = t.read(0, (TPA, CLK))
+    assert got == {TPA: FieldSample(0.625, 5.0), CLK: FieldSample(1830.0, 5.0)}
+
+
+def test_pynvml_reads_gpm_as_an_interval_average(nvml):
+    """A field that answers with an error gives way to GPM: one sample at
+    connect, then each read the tensor-busy share of the interval since
+    the previous read, / 100; every sample is freed."""
+    nv = nvml(field=(3, 0.0), gpm=[(0.0, 0.0), (10.0, 4.0), (12.0, 5.8)])
+    t = PynvmlTransport()
+    t.connect()
+    assert t.tpa_source == "gpm" and "field" in t.refused
+    assert nv.calls["alloc"] == 1
+    assert t.read(0, (TPA,))[TPA].value == pytest.approx(0.4)
+    assert t.read(0, (TPA, CLK))[TPA].value == pytest.approx(0.9)
+    assert nv.calls["alloc"] - nv.calls["free"] == 1     # the last sample
+    t.close()
+    assert nv.calls["alloc"] == nv.calls["free"] == 3
+    assert nv.calls["init"] == nv.calls["shutdown"] == 1
+
+
+@pytest.mark.parametrize("kw,why", [
+    ({}, "no NVML_FI_PROF_PIPE_TENSOR_ACTIVE"),
+    ({"gpm": "unknown"}, "NVML error unknown"),        # the H100 here
+    ({"gpm": [(0.0, 0.0)], "gpm_supported": False}, "not a GPM device"),
+])
+def test_pynvml_falls_back_to_utilization_and_says_so(nvml, kw, why):
+    nv = nvml(util=(37, 100), **kw)
+    t = PynvmlTransport()
+    t.connect()
+    assert t.tpa_source == "utilization"
+    assert why in " ".join(t.refused.values())
+    assert [t.read(0, (TPA,))[TPA].value for _ in range(2)] == [0.37, 1.0]
+    t.close()
+    assert nv.calls["alloc"] == nv.calls["free"]
+
+
+@pytest.mark.parametrize("kw,fail", [
+    ({}, "clock"), ({}, "util"), ({"field": (0, 0.5)}, "field"),
+    ({"gpm": [(0.0, 0.0), (1.0, 0.5)]}, "metrics")])
+def test_pynvml_errors_raise_transport_error(nvml, kw, fail):
+    nv = nvml(fail=(), **kw)
+    t = PynvmlTransport()
+    t.connect()
+    nv_fail = _fake_nvml(fail=(fail,), **kw)
+    for name in ("nvmlDeviceGetClockInfo", "nvmlDeviceGetUtilizationRates",
+                 "nvmlDeviceGetFieldValues", "nvmlGpmMetricsGet"):
+        if hasattr(nv_fail, name):
+            setattr(nv, name, getattr(nv_fail, name))
+    with pytest.raises(TransportError, match="NVML read failed on GPU 0"):
+        t.read(0, (TPA, CLK))
+    with pytest.raises(TransportError, match="no such GPU"):
+        t.read(3, (TPA, CLK))
+
+
+def test_pynvml_init_error_raises_and_backend_polls(nvml):
+    nvml(fail=("init",))
+    with pytest.raises(TransportError, match="NVML init failed"):
+        PynvmlTransport().connect()
+    nvml(util=(50,), clock=(1980,))
+    be = DcgmFieldBackend(0, PynvmlTransport(), strict=True)
+    assert be.poll(0.2) == (0.5, 1980.0)
+    assert be.healthy and be.transport.tpa_source == "utilization"
+
+
 # ---------------------------------------------------------------------------
 # DcgmFieldBackend policy: ranges, staleness, retry/backoff
 # ---------------------------------------------------------------------------
 class _ScriptedTransport:
-    """Serves a scripted list of (tpa, clk, t_s) triples; entries that
-    are exceptions raise instead."""
+    """Serves a scripted list of (tpa, clk, t_s) triples, under the field
+    ids the backend asks for (tensor activity first, the SM clock
+    second); entries that are exceptions raise instead."""
 
     sample = FieldSample
 
@@ -209,7 +415,8 @@ class _ScriptedTransport:
         if isinstance(item, Exception):
             raise item
         tpa, clk, t_s = item
-        return {TPA: self.sample(tpa, t_s), CLK: self.sample(clk, t_s)}
+        f_tpa, f_clk = field_ids
+        return {f_tpa: self.sample(tpa, t_s), f_clk: self.sample(clk, t_s)}
 
 
 def test_backend_rejects_out_of_range_readings():

@@ -16,7 +16,9 @@ against the JAX package's on the same inputs.
     only their own rows; a train step lies within [0.98, 1.05] of the
     reference's (the backward's named differences: ROADMAP);
   * the peak tracker on a known alloc/free sequence, and B3 on fake
-    tensors at S = 8,192: the peak rises by its output only, no S x S.
+    tensors at S = 8,192: the peak rises by its output only, no S x S;
+    B4's SIMT path in an f32 Mamba2 step: each op adds its output and
+    its C·Bᵀ scratch, as the launch allocates them.
 """
 import json
 import math
@@ -435,6 +437,46 @@ def test_fake_ssd_counts_its_formula_and_launches_nothing():
     assert st.flops == BC * nh * Q * (Q + 1) // 2 * (2 * (ds + hd) + 4)
     assert st.temp_bytes == x.numel() * 2
     assert ssd_scan.ssd_intra_kernel.launches == n
+
+
+class _SsdSteps(LiveBytes):
+    """A tracker that also notes, for each SSD op of the trace, the live
+    bytes just before it and just after it returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.ssd: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        before = self.live
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if "ssd_intra" in str(func):
+            self.ssd.append((tuple(args[0].shape), tuple(args[3].shape),
+                             before, self.live))
+        return out
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_dry_run_counts_the_simt_ssd_scratch(kind):
+    """An f32 Mamba2 smoke step takes the SIMT SSD, whose launch
+    allocates its C·Bᵀ scratch beside the output: every SSD op of the
+    trace adds both to the live bytes, and the step's peak holds them."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("mamba2-780m").smoke(),
+                              dtype="float32")
+    tracker = _SsdSteps()
+    rec = dryrun.run_cell(cfg, ShapeSpec(kind, DRY_S, DRY_B, kind),
+                          trackers=[tracker])
+    assert tracker.ssd, "the step traced no SSD op"
+    for x_shape, b_shape, before, after in tracker.ssd:
+        BC, Q, nh, hd = x_shape
+        assert ssd_scan.variant(torch.float32, Q, hd, b_shape[-1]) == "simt"
+        scratch = ssd_scan.simt_scratch(BC, Q, b_shape[2]) * 4
+        assert scratch > 0
+        assert after - before == rounded(math.prod(x_shape) * 4) \
+            + rounded(scratch)
+    assert rec["memory"]["peak_bytes"] == tracker.peak \
+        >= max(after for *_, after in tracker.ssd)
 
 
 def test_flash_formula_counts_the_tilings():

@@ -232,3 +232,41 @@ def test_tools_run_as_modules():
         assert e.value.code == 0
     assert os.path.isfile(ROOT / "src" / "repro_torch" / "tools"
                           / "__init__.py")
+
+
+# ---------------------------------------------------------------------------
+# fleet_live --chip
+# ---------------------------------------------------------------------------
+def test_fleet_live_chip_parses_with_the_default_unchanged(monkeypatch):
+    from repro_torch.core.peaks import CHIPS, DEFAULT_CHIP
+    live = _port("fleet_live")
+    seen = []
+    monkeypatch.setattr(live, "serve", lambda args: seen.append(args) or 0)
+    assert live.main(["--transport", "pynvml"]) == 0
+    assert live.main(["--transport", "pynvml", "--chip", "h100-sxm"]) == 0
+    assert [a.chip for a in seen] == [DEFAULT_CHIP.name, "h100-sxm"]
+    assert CHIPS[seen[0].chip] is DEFAULT_CHIP
+    with pytest.raises(SystemExit):
+        live.main(["--chip", "h100"])
+
+
+@pytest.mark.parametrize("chip", ["tpu-v5e", "h100-sxm"])
+def test_fleet_live_chip_reaches_the_job_stream(chip, monkeypatch, capsys):
+    """The fake transport served on the CPU: the job's stream carries the
+    chip, so the served OFU divides by that chip's f_max."""
+    from repro_torch.core.peaks import CHIPS
+    live = _port("fleet_live")
+    made = []
+
+    class Collector(live.Collector):
+        def __init__(self, streams, config):
+            super().__init__(streams, config)
+            made.append(self)
+    monkeypatch.setattr(live, "Collector", Collector)
+    assert live.main(["--transport", "fake", "--chip", chip, "--device",
+                      "cpu", "--replay-fast", "--devices", "2",
+                      "--interval-s", "30", "--duration-s", "600",
+                      "--round-s", "300", "--bucket-s", "300"]) == 0
+    (col,) = made
+    assert [st.chip for st in col.streams] == [CHIPS[chip]]
+    assert f"OFU over {chip}'s f_max" in capsys.readouterr().out
