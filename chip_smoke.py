@@ -197,6 +197,25 @@
    Runs the six CLIs' `--self-check` (`repro_torch.tools.*`) on the card
    in this process, each of which must return 0, with the histogram
    kernel's launches counted per CLI (their output goes to build/tools/).
+   (b') The dry run on the production mesh: zamba2-7b and nemotron-4-340b
+   at train_4k, prefill_32k and decode_32k on 16 x 16, each cell traced
+   as one of 256 H100s sees it (DTensors over a fake process group of
+   512 ranks, meta tensors), one process a cell, started beside phase 1
+   and read here (`--mesh-cell`; records in build/dryrun_mesh/).  Prints
+   per device the argument bytes, which must equal the sum of the local
+   shards' bytes computed from the specs alone, the peak and temporary
+   bytes and whether the peak fits 80 GB, the collectives' wire bytes
+   and counts by kind, which must not all be 0, and the roofline's
+   compute, memory and collective terms; fails unless B3 and B4 launched
+   nothing in any of those processes or this one, and unless each cell's
+   peak, wire bytes and FLOPs agree within 1 % with the CPU's trace of
+   the same cell (`MESH_CPU`: DTensor's placements may change with
+   PyTorch's version, and the card's differs).  (e) A real one-rank
+   `nccl` process group (a `FileStore` in build/) and a (1, 1) mesh:
+   zamba2-7b at full width, 6 layers, prefill at S 4,096, its parameters
+   as DTensors; the logits must be bitwise equal to the unsharded port's
+   on the same parameters, with B3 and B4 launched as many times, through
+   their sharding rules; the group is destroyed afterwards.
 15. The paper's own measurement on the card.  (a) Fig. 1's sweep through
    the GEMM kernel again under the H100's tile policies
    (`pick_policy(..., chip=H100_SXM)`: the kernel's own tiles), launched
@@ -390,6 +409,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build(["fleet_hist", "gemm", "ssd_scan", "flash_attention"])
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+    mesh_cells = start_mesh_cells()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -565,7 +585,7 @@ def main() -> None:
 
     # -- 14. the ops, the dry run, the roofline and the six CLIs ------------
     records["fleet_hist"]["tools_launches"] = dryrun_phase(
-        torch, dev, card, measured)
+        torch, dev, card, measured, mesh_cells)
 
     # -- 15. the card's own counters: TPA, SM clock, OFU beside MFU --------
     for name, n in counters_phase(torch, dev, card, poller,
@@ -3487,12 +3507,14 @@ TOOLS = ("trace_convert", "fleet_serve", "fleet_ingest", "fleet_live",
 OP_CALLS = 200
 
 
-def dryrun_phase(torch, dev, card: str, measured: dict) -> dict:
+def dryrun_phase(torch, dev, card: str, measured: dict,
+                 mesh_cells: dict) -> dict:
     """14. (a) B3 and B4 through their ops against their direct launch;
     (b) the dry run of the three steps phases 11 and 12 ran, against what
     the card measured; (c) its roofline against the H100 SXM data sheet
-    and the measured times; (d) the six CLIs' self-checks on the card.
-    Returns the histogram kernel's launches by CLI."""
+    and the measured times; (d) the six CLIs' self-checks on the card;
+    (b') the dry run on the production mesh; (e) a one-rank process group
+    on the card.  Returns the histogram kernel's launches by CLI."""
     t_phase = time.perf_counter()
     ops_check(torch, dev)
     marks = {"ops": time.perf_counter()}
@@ -3501,6 +3523,10 @@ def dryrun_phase(torch, dev, card: str, measured: dict) -> dict:
     roofline_check(recs, card, measured)
     launches = tools_check(torch, card)
     marks["tools"] = time.perf_counter()
+    mesh_dryrun_check(torch, card, mesh_cells)
+    marks["mesh dry run"] = time.perf_counter()
+    one_rank_check(torch, dev, card)
+    marks["one rank"] = time.perf_counter()
     split, t = [], t_phase
     for name, mark in marks.items():
         split.append(f"{name} {mark - t:.2f}")
@@ -3508,6 +3534,227 @@ def dryrun_phase(torch, dev, card: str, measured: dict) -> dict:
     print(f"dry-run phase 14: {time.perf_counter() - t_phase:.2f} s ("
           + ", ".join(split) + f" s) [{card}]")
     return launches
+
+
+#: the production mesh's cells, each traced in its own process beside the
+#: card's phases (`--mesh-cell`), and the limit on their wait in phase 14
+MESH_ARCHS = ("zamba2-7b", "nemotron-4-340b")
+MESH_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+MESH_WAIT_S = 900
+#: each cell's per-device peak bytes, collective wire bytes and FLOPs as
+#: the CPU traces them (`python -m repro_torch.launch.dryrun --arch A
+#: --shape S`, PyTorch 2.13 built for the CPU): the card's trace, on its
+#: own PyTorch, must agree within MESH_AGREE (a relative limit), or the
+#: placements DTensor chose there differ from the ones the tests hold
+MESH_CPU = {
+    ("zamba2-7b", "train_4k"): (2272756736, 243061199670.0, 301989550096384.0),
+    ("zamba2-7b", "prefill_32k"): (1757031424, 57688919040.0, 91897568559104.0),
+    ("zamba2-7b", "decode_32k"): (4692163072, 92968620.0, 12669408256.0),
+    ("nemotron-4-340b", "train_4k"): (33380686848, 1944075901470.0, 1.0331938967519232e+16),
+    ("nemotron-4-340b", "prefill_32k"): (11573940224, 540660917760.0, 3231842631155712.0),
+    ("nemotron-4-340b", "decode_32k"): (14097863680, 1732392960.0, 452267606016.0),
+}
+MESH_AGREE = 0.01
+#: phase 14 (e): zamba2-7b at full width, this many layers
+ONE_RANK_LAYERS, ONE_RANK_S = 6, 4096
+
+
+def mesh_cell_main(arch: str, shape: str, out: str) -> None:
+    """`--mesh-cell ARCH SHAPE OUT`: one production-mesh cell's dry-run
+    record, with the flash and SSD kernels' launches in this process,
+    written to OUT as JSON."""
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_intra_kernel
+    from repro_torch.launch.dryrun import run_cell
+    t0 = time.perf_counter()
+    rec = run_cell(arch, shape)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = {"flash_attention": flash_attention_kernel.launches,
+                       "ssd_intra": ssd_intra_kernel.launches}
+    Path(out).write_text(json.dumps(rec))
+
+
+def start_mesh_cells() -> dict:
+    """Start one `--mesh-cell` process a production-mesh cell (a fake
+    trace: host work only, at low priority), to be read in phase 14.
+    Returns {(arch, shape): (process, record path)}; every process is
+    killed at exit if still running."""
+    import atexit
+    import os
+    out = Path(__file__).resolve().parent / "build" / "dryrun_mesh"
+    out.mkdir(parents=True, exist_ok=True)
+    cells = {}
+    for arch in MESH_ARCHS:
+        for shape in MESH_SHAPES:
+            path = out / f"{arch}_{shape}_single.json"
+            path.unlink(missing_ok=True)
+            log = open(out / f"{arch}_{shape}.log", "w")
+            proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--mesh-cell", arch, shape, str(path)],
+                stdout=log, stderr=subprocess.STDOUT,
+                preexec_fn=lambda: os.nice(10))
+            cells[arch, shape] = (proc, path)
+
+    def stop():
+        for proc, _ in cells.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    atexit.register(stop)
+    return cells
+
+
+def spec_bytes(arch: str, shape_name: str, layout: dict) -> int:
+    """One device's bytes of a cell's arguments (parameters, optimizer
+    state, batch) from their shapes and the layout's specs alone."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config, input_specs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.sharding import (batch_shardings,
+                                             opt_state_shardings,
+                                             param_shardings, shard_bytes)
+    from repro_torch.models import abstract_params
+    from repro_torch.optim import adamw
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    mesh = make_production_mesh()
+    dp, tp, fsdp = tuple(layout["dp"]), layout["tp"], layout["fsdp"]
+    params = abstract_params(cfg)
+    with torch.device("meta"):
+        batch = {k: torch.empty(s.shape, dtype=s.dtype)
+                 for k, s in input_specs(cfg, shape).items()}
+    n = shard_bytes(params, param_shardings(
+        cfg, params, mesh, dp, tp, fsdp, serving=layout["serving"]), mesh)
+    n += shard_bytes(batch, batch_shardings(cfg, shape, mesh, dp, tp), mesh)
+    if shape.kind == "train":
+        opt = layout["opt"]
+        state = adamw.init(adamw.OptConfig(
+            moment_dtype=opt.split("/")[0],
+            factored_v=opt.endswith("factored_v")), params)
+        n += shard_bytes(state, opt_state_shardings(state, mesh, dp, tp,
+                                                    fsdp), mesh)
+    return n
+
+
+def mesh_dryrun_check(torch, card: str, cells: dict) -> None:
+    """(b') The production-mesh cells' records: per-device bytes, FLOPs,
+    collectives and roofline terms, printed; argument bytes equal to the
+    specs' shard sum, nonzero collectives, no kernel launched."""
+    from repro_torch.benchmarks.roofline import roofline_terms
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_intra_kernel
+    before = (flash_attention_kernel.launches, ssd_intra_kernel.launches)
+    deadline = time.perf_counter() + MESH_WAIT_S
+    for (arch, shape), (proc, path) in cells.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            fail(f"mesh dry run {arch} {shape}: not done in {MESH_WAIT_S} s")
+        log = path.parent / f"{arch}_{shape}.log"
+        check(rc == 0 and path.exists(), f"mesh dry run {arch} {shape} "
+              f"failed (rc {rc}); the end of {log}:\n"
+              + "\n".join(log.read_text().splitlines()[-25:]))
+        rec = json.loads(path.read_text())
+        check((rec["mesh"], rec["devices"]) == ("16x16", 256),
+              f"mesh dry run {arch} {shape}: on {rec['mesh']}")
+        check(rec["launches"] == {"flash_attention": 0, "ssd_intra": 0},
+              f"mesh dry run {arch} {shape} launched {rec['launches']}")
+        mem, hlo = rec["memory"], rec["hlo"]
+        want = spec_bytes(arch, shape, rec["parallelism"])
+        check(mem["argument_bytes"] == want, f"mesh dry run {arch} {shape}: "
+              f"argument bytes {mem['argument_bytes']} != the specs' shard "
+              f"sum {want}")
+        coll = {k: v for k, v in hlo["collective_bytes"].items() if v}
+        check(coll, f"mesh dry run {arch} {shape}: no collective bytes")
+        got = (mem["peak_bytes"], sum(coll.values()), hlo["flops"])
+        cpu = MESH_CPU[arch, shape]
+        for name, a, b in zip(("peak", "wire", "FLOPs"), got, cpu):
+            check(abs(a - b) <= MESH_AGREE * b, f"mesh dry run {arch} "
+                  f"{shape}: the card traces {name} {a:.6e}, the CPU "
+                  f"{b:.6e} (more than {MESH_AGREE:.0%} apart); live at "
+                  f"the peak: {mem['at_peak'][:4]}")
+        t = roofline_terms(rec)
+        fits = "fits" if mem["peak_bytes"] <= 80e9 else "does NOT fit"
+        print(f"mesh dry run {arch} {shape} on 16x16, per device (counts "
+              f"from a fake trace, {rec['wall_s']:.1f} s): arguments "
+              f"{mem['argument_bytes'] / 2**30:.3f} GiB (= the specs' "
+              f"shard sum), peak {mem['peak_bytes'] / 2**30:.3f} GiB "
+              f"(temporaries {mem['temp_bytes'] / 2**30:.3f}; {fits} 80 "
+              f"GB); FLOPs {hlo['flops']:.4e}; collectives " + ", ".join(
+                  f"{k} {v / 2**30:.3f} GiB x{hlo['collective_counts'][k]:.0f}"
+                  for k, v in coll.items())
+              + f"; roofline compute {t['compute_s']:.4f} s, memory "
+              f"{t['memory_s']:.4f} s, collective {t['collective_s']:.4f} s; "
+              f"peak, wire and FLOPs within {MESH_AGREE:.0%} of the CPU's "
+              f"trace [{card}]")
+    check((flash_attention_kernel.launches, ssd_intra_kernel.launches)
+          == before, "the mesh dry run moved the kernels' launch counts")
+
+
+def one_rank_check(torch, dev, card: str) -> None:
+    """(e) A one-rank `nccl` group and a (1, 1) mesh: zamba2-7b's prefill
+    with DTensor parameters against the unsharded port, bitwise, with
+    the kernels' launch counts equal."""
+    import dataclasses
+    import os
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeSpec, get_config, make_inputs
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_intra_kernel
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.sharding import (batch_shardings,
+                                             distribute_tree,
+                                             param_shardings)
+    from repro_torch.models import api as models
+    from repro_torch.models.common import ShardCtx
+    store = Path(__file__).resolve().parent / "build" / "pg" / "store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    check(not dist.is_initialized(), "a process group is already open")
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        cfg = dataclasses.replace(get_config(SERVE_MODEL),
+                                  num_layers=ONE_RANK_LAYERS)
+        shape = ShapeSpec("prefill", ONE_RANK_S, 1, "prefill")
+        params = models.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        batch = make_inputs(cfg, shape, device=dev)
+        mesh = make_smoke_mesh(1, device_type="cuda")
+        dp, tp = ("data",), "model"
+        ctx = ShardCtx(mesh, dp, tp)
+        dparams = distribute_tree(params, param_shardings(
+            cfg, params, mesh, dp, tp), mesh)
+        dbatch = distribute_tree(batch, batch_shardings(
+            cfg, shape, mesh, dp, tp), mesh)
+        counts = {}
+        outs = {}
+        for name, args in (("plain", (params, batch, None)),
+                           ("mesh", (dparams, dbatch, ctx))):
+            zero_counts(flash_attention_kernel, ssd_intra_kernel)
+            with torch.no_grad():
+                out = models.forward(cfg, *args)
+            torch.cuda.synchronize()
+            counts[name] = (flash_attention_kernel.launches,
+                            ssd_intra_kernel.launches)
+            outs[name] = out.full_tensor() if name == "mesh" else out
+        check(counts["plain"] == counts["mesh"] and min(counts["plain"]) > 0,
+              f"one-rank mesh: launches {counts['mesh']} vs unsharded "
+              f"{counts['plain']}")
+        check(torch.equal(outs["plain"], outs["mesh"]),
+              "one-rank mesh: the logits differ from the unsharded port's")
+        print(f"one-rank nccl mesh (1, 1): {SERVE_MODEL} at full width, "
+              f"{ONE_RANK_LAYERS} layers, prefill S {ONE_RANK_S}: logits "
+              f"{tuple(outs['mesh'].shape)} bitwise equal to the unsharded "
+              f"port's; flash/SSD launches {counts['mesh']} through their "
+              f"sharding rules, as unsharded [{card}]")
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the one-rank group is still open")
 
 
 def host_us(torch, fn, n: int) -> float:
@@ -3601,6 +3848,7 @@ def dryrun_check(torch, card: str, measured: dict) -> dict:
     from repro_torch.kernels.ssd_scan import ssd_intra_kernel
     from repro_torch.launch.dryrun import run_cell
     from repro_torch.launch.hlo_analysis import LiveBytes
+    from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.optim import adamw
     cfg = get_config(SERVE_MODEL)
     mutant_types = {"never-frees": _NeverFrees,
@@ -3620,7 +3868,8 @@ def dryrun_check(torch, card: str, measured: dict) -> dict:
                    for m, t in mutant_types.items()}
         t0 = time.perf_counter()
         rec = run_cell(SERVE_MODEL, shape, device="cuda",
-                       trackers=tuple(mutants.values()), **kw)
+                       trackers=tuple(mutants.values()),
+                       mesh=make_smoke_mesh(1), **kw)
         trace_s = time.perf_counter() - t0
         check(rec["trace_device"] == "cuda", f"dry run traced on "
               f"{rec['trace_device']}")
@@ -4035,4 +4284,7 @@ def fleet_live_check(torch, card: str) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-cell"]:
+        mesh_cell_main(*sys.argv[2:5])
+    else:
+        main()

@@ -5,11 +5,15 @@ Three terms per cell, for one device:
   memory     = traced HBM traffic bytes / HBM bytes/s
   collective = collective wire bytes / link bytes/s
 
-The records (`repro_torch.launch.dryrun`) describe one H100, so `run`
-reads them against the H100 SXM data sheet's peaks (`H100_SXM`: dense
-bf16 tensor-core rate, HBM rate, NVLink each way); `roofline_terms`
-takes any peaks.  Their FLOPs and bytes are counts from a fake trace,
-and the bounds are the data sheet's, not a measurement.  Also reported:
+The records (`repro_torch.launch.dryrun`) describe one H100 of the
+production mesh (its FLOPs, bytes and collective wire bytes), or one
+card alone, so `run` reads them against the H100 SXM data sheet's peaks
+(`H100_SXM`: dense bf16 tensor-core rate, HBM rate, NVLink each way);
+`roofline_terms` takes any peaks.  Their FLOPs and bytes are counts from
+a fake trace, and the bounds are the data sheet's, not a measurement.
+The mesh is the reference's: its 16-wide model axis spans two 8-GPU
+NVLink domains on H100s, and every collective is still read at the one
+NVLink rate.  Also reported:
 MODEL_FLOPS = 6·N_active·D and its ratio to the traced FLOPs
 (remat/redundancy visibility), and what would move the dominant term.
 """

@@ -19,7 +19,10 @@ trace on fake CUDA tensors (`launch.hlo_analysis.analyze_step`, the dry
 run) passes through it: its fake version (also its meta kernel)
 allocates the output the launch allocates, and its FLOP formula counts
 the (query, key) pairs the kernel's tiling computes (`flash_flops`).  A
-fake call launches nothing and counts nothing.
+fake call launches nothing and counts nothing.  DTensor inputs (a device
+mesh) always take the op, through its sharding rule (`_sharding_rule`:
+batch or heads), which launches it on each device's shards; on CPU
+shards the op runs the plain version.
 """
 from __future__ import annotations
 
@@ -27,9 +30,9 @@ import ctypes
 import math
 
 import torch
-from torch._subclasses.fake_tensor import is_fake
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels import sharding
 from repro_torch.kernels.ref import ref_attention
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -103,6 +106,28 @@ def _(q, k, v, causal, scale, path):
     return torch.empty_like(q)
 
 
+@flash_attention_op.register_kernel("cpu")
+def _(q, k, v, causal, scale, path):
+    # a DTensor's CPU shards (a `gloo` mesh): the plain version on them
+    return ref_attention(q, k, v, causal=causal, scale=scale).contiguous()
+
+
+def _sharding_rule(q, k, v, causal, scale, path):
+    """DTensor placements the op takes, one mesh dimension at a time:
+    everything replicated; q, k, v and the output split alike over the
+    batch; or over the heads, q's H with k's and v's KV, where both split
+    evenly over a mesh dimension, so each device holds whole GQA groups.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+    rest = [None, None, None]
+    out = [([r], [r, r, r] + rest) for r in (Replicate(), Shard(0))]
+    sizes = sharding.mesh_sizes(q)
+    if sharding.divides_each(q.shape[2], sizes) and \
+            sharding.divides_each(k.shape[2], sizes):
+        out.append(([Shard(2)], [Shard(2)] * 3 + rest))
+    return out
+
+
 def flash_flops(q_shape, k_shape, causal: bool, path: str) -> int:
     """FLOPs the kernel `path` executes: 4·hd a (query, key) pair it
     computes, for each head.  Both kernels compute whole tiles of a
@@ -146,7 +171,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device != k.device or q.device != v.device:
         raise ValueError("q, k and v lie on different devices")
     scale = hd ** -0.5 if scale is None else scale
-    if q.device.type == "cpu":
+    dtensor = sharding.is_dtensor(q)
+    if q.device.type == "cpu" and not dtensor:
         return ref_attention(q, k, v, causal=causal, scale=scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -166,8 +192,12 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("the bf16 path takes H <= 65535")
     if q.numel() == 0:
         return torch.empty_like(q)
+    if dtensor:
+        sharding.ensure(torch.ops.repro_torch.flash_attention.default,
+                        _sharding_rule)
     out = flash_attention_op(q, k, v, causal, float(scale), path)
-    if is_fake(out) or out.is_meta:
+    sharding.check_split(out, 2, H, KV)
+    if not sharding.launched(out):
         return out
     flash_attention_kernel.launches += 1
     flash_attention_kernel.launches_by[path] += 1

@@ -15,13 +15,18 @@ on CUDA inputs that would need a gradient, so nothing bypasses them.
 The backwards compute in f32 (f64 for f64 inputs) and return gradients
 in the inputs' dtypes.  `flash_bwd` and `ssd_intra_bwd` are looked up
 when the backward runs, so a check can swap in a broken one.
+
+On DTensors the forwards run through the ops' sharding rules, which
+split the work only over independent (batch, chunk, head) slices, and
+each backward runs on the local shards placed as the forward's output
+(`_on_shards`), so a device's backward is the plain one on its slices.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ssd_scan
+from repro_torch.kernels import sharding, ssd_scan
 from repro_torch.kernels.ref import compute_dtype
 
 #: query rows a block of the flash backward: its f32 scores are
@@ -121,6 +126,24 @@ def ssd_intra_bwd(x, dt, dacs, b, c, dy):
     return dx, ddt, ddacs, db, dc
 
 
+def _layout(out):
+    """(mesh, placements) of a forward's DTensor output, else None."""
+    return (out.device_mesh, out.placements) \
+        if sharding.is_dtensor(out) else None
+
+
+def _on_shards(fn, layout, *tensors, **kw):
+    """fn(*tensors, **kw), or, under a forward output's `layout`, fn on
+    the local shards of `tensors` each placed so, its results DTensors
+    placed alike with the global shapes of the first `tensors`."""
+    if layout is None:
+        return fn(*tensors, **kw)
+    _, place = layout
+    return sharding.on_shards(lambda *t: fn(*t, **kw), tensors,
+                              [place] * len(tensors),
+                              [(place, t.shape) for t in tensors])
+
+
 class FlashAttention(torch.autograd.Function):
     """`flash_attention_kernel` forward, `flash_bwd` backward."""
 
@@ -128,6 +151,7 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, scale):
         out = fa.flash_attention_kernel(q, k, v, causal=causal, scale=scale)
         ctx.save_for_backward(q, k, v, out)
+        ctx.layout = _layout(out)
         ctx.causal = causal
         ctx.scale = q.shape[-1] ** -0.5 if scale is None else scale
         return out
@@ -135,8 +159,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, o, do, causal=ctx.causal,
-                               scale=ctx.scale)
+        dq, dk, dv = _on_shards(flash_bwd, ctx.layout, q, k, v, o, do,
+                                causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None
 
 
@@ -146,11 +170,13 @@ class SSDIntra(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, dacs, b, c):
         ctx.save_for_backward(x, dt, dacs, b, c)
-        return ssd_scan.ssd_intra_kernel(x, dt, dacs, b, c)
+        y = ssd_scan.ssd_intra_kernel(x, dt, dacs, b, c)
+        ctx.layout = _layout(y)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        return ssd_intra_bwd(*ctx.saved_tensors, dy)
+        return _on_shards(ssd_intra_bwd, ctx.layout, *ctx.saved_tensors, dy)
 
 
 def needs_grad(*tensors) -> bool:

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from repro_torch.core.tile_quant import TilePolicy, pick_policy
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm as gemm_mod
-from repro_torch.kernels import grad, ssd_scan
+from repro_torch.kernels import grad, sharding, ssd_scan
 from repro_torch.kernels.ref import compute_dtype
 
 _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "fp32",
@@ -123,16 +123,23 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int) -> torch.Tensor:
     x: (B, S, nh, hd); dt: (B, S, nh); A: (nh,); Bm/Cm: (B, S, g, ds).
     Same contract as the reference's `models.ssm.ssd_chunked`.
     """
+    if sharding.is_dtensor(x):
+        return _ssd_on_shards(x, dt, A, Bm, Cm, chunk=chunk)
+    inputs = ssd_intra_inputs(x, dt, A, Bm, Cm, chunk=chunk)
+    return _ssd_inter(x, Bm, Cm, inputs, ssd_intra(*inputs))
+
+
+def _ssd_inter(x, Bm, Cm, inputs, y_intra) -> torch.Tensor:
+    """`ssd`'s output from its intra-chunk term: the plain inter-chunk
+    recurrence and its contribution added."""
     Bsz, S, nh, hd = x.shape
     g, ds = Bm.shape[2], Bm.shape[3]
     hpg = nh // g
-    inputs = ssd_intra_inputs(x, dt, A, Bm, Cm, chunk=chunk)
     Q = inputs[0].shape[1]
     nc = S // Q
     f32 = compute_dtype(x.dtype)
     dtc = inputs[1].reshape(Bsz, nc, Q, nh)
     dacs = inputs[2].reshape(Bsz, nc, Q, nh)
-    y_intra = ssd_intra(*inputs)
     y_intra = y_intra.reshape(Bsz, nc, Q, nh, hd).to(f32)
 
     # ---- inter-chunk recurrence + contribution (plain PyTorch) ----
@@ -157,3 +164,39 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int) -> torch.Tensor:
         h_prevs.reshape(Bsz, nc, g, hpg, hd, ds))
     y = y_intra + y_inter.reshape(Bsz, nc, Q, nh, hd)
     return y.reshape(Bsz, S, nh, hd).to(x.dtype)
+
+
+def _ssd_on_shards(x, dt, A, Bm, Cm, *, chunk: int) -> torch.Tensor:
+    """`ssd` on DTensors: split over the batch and, where the groups split
+    alike, the heads (the scan needs whole sequences, so any other split
+    is gathered first); the plain parts on each device's shards, the
+    intra-chunk term through the kernel's op and its sharding rule on
+    those shards as DTensors (no redistribution: they are placed as the
+    rule's batch and head splits)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = x.device_mesh
+    place = [p if p in (Shard(0), Shard(2)) else Replicate()
+             for p in x.placements]
+    ways = 1
+    for i, p in enumerate(place):
+        ways *= mesh.size(i) if p == Shard(2) else 1
+    if Bm.shape[2] % ways:
+        place = [Replicate() if p == Shard(2) else p for p in place]
+    a_place = [Shard(0) if p == Shard(2) else Replicate() for p in place]
+    Bsz, S, nh, _ = x.shape
+    g = Bm.shape[2]
+
+    def local(x, dt, A, Bm, Cm):
+        inputs = ssd_intra_inputs(x, dt, A, Bm, Cm, chunk=chunk)
+        BC = Bsz * (S // inputs[0].shape[1])
+        wrapped = []
+        for t, n in zip(inputs, (nh, nh, nh, g, g)):
+            shape = (BC, t.shape[1], n, *t.shape[3:])
+            wrapped.append(DTensor.from_local(
+                t, mesh, place, run_check=False, shape=shape,
+                stride=sharding.contiguous_strides(shape)))
+        y_intra = ssd_intra(*wrapped).to_local()
+        return _ssd_inter(x, Bm, Cm, inputs, y_intra)
+    return sharding.on_shards(local, (x, dt, A, Bm, Cm),
+                              (place, place, a_place, place, place),
+                              [(place, x.shape)])

@@ -23,6 +23,10 @@ wrote (empty on the tensor-core path), so its fake version (also its
 meta kernel), which allocates both, shows a trace every byte the launch
 allocates; its FLOP formula counts the causal pairs of each chunk and
 head (`ssd_flops`).  A fake call launches nothing and counts nothing.
+DTensor inputs (a device mesh) always take the op, through its sharding
+rule (`_sharding_rule`: batch·chunks, or heads with their B/C groups),
+which launches it on each device's shards; on CPU shards the op runs
+the plain version.
 
 B/C arrive in their groups: head h reads group h // (nh / g), where the
 reference takes them broadcast to one copy a head (g = nh here).
@@ -32,9 +36,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
-from torch._subclasses.fake_tensor import is_fake
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels import sharding
 from repro_torch.kernels.ref import ref_ssd_intra
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -151,6 +155,28 @@ def _(x, dt, dacs, b, c, path):
     return torch.empty_like(x), x.new_empty(n, dtype=torch.float32)
 
 
+@ssd_intra_op.register_kernel("cpu")
+def _(x, dt, dacs, b, c, path):
+    # a DTensor's CPU shards (a `gloo` mesh): the plain version on them
+    return (ref_ssd_intra(x, dt, dacs, b, c).contiguous(),
+            x.new_empty(0, dtype=torch.float32))
+
+
+def _sharding_rule(x, dt, dacs, b, c, path):
+    """DTensor placements the op takes, one mesh dimension at a time:
+    everything replicated; every input split alike over batch·chunks; or
+    over the heads, x's, dt's and dacs's nh with b's and c's g, where g
+    splits evenly over a mesh dimension, so each device holds whole
+    groups of its heads.  The scratch (C·Bᵀ tiles a (chunk, group), flat)
+    splits with the chunks or the groups."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [([Replicate()] * 2, [Replicate()] * 5 + [None]),
+           ([Shard(0)] * 2, [Shard(0)] * 5 + [None])]
+    if sharding.divides_each(b.shape[2], sharding.mesh_sizes(x)):
+        out.append(([Shard(2), Shard(0)], [Shard(2)] * 5 + [None]))
+    return out
+
+
 def ssd_flops(x_shape, b_shape) -> int:
     """FLOPs of the intra-chunk term, as the kernels' bounds count them:
     C·B and M·X over the causal pairs of each chunk, and M's decay and
@@ -190,7 +216,8 @@ def ssd_intra_kernel(x, dt, dacs, b, c, *, head_block: int = 8):
                          "b/c (BC, Q, g, ds) with nh % g == 0")
     if len({t.device for t in (x, dt, dacs, b, c)}) != 1:
         raise ValueError("inputs lie on different devices")
-    if x.device.type == "cpu":
+    dtensor = sharding.is_dtensor(x)
+    if x.device.type == "cpu" and not dtensor:
         return ref_ssd_intra(x, dt, dacs, b, c)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, dacs, b, c)):
@@ -211,8 +238,12 @@ def ssd_intra_kernel(x, dt, dacs, b, c, *, head_block: int = 8):
     path = variant(x.dtype, Q, hd, ds)
     if x.numel() == 0:
         return torch.empty_like(x)
+    if dtensor:
+        sharding.ensure(torch.ops.repro_torch.ssd_intra.default,
+                        _sharding_rule)
     y, _scratch = ssd_intra_op(x, dt, dacs, b, c, path)
-    if is_fake(y) or y.is_meta:
+    sharding.check_split(y, 2, nh, g)
+    if not sharding.launched(y):
         return y
     ssd_intra_kernel.launches += 1
     ssd_intra_kernel.launches_by[path] += 1

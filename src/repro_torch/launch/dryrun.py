@@ -1,25 +1,36 @@
-"""Dry run: trace every (architecture × input-shape) cell's step on fake
-tensors, and extract the roofline inputs, for one H100.
+"""Dry run: trace every (architecture × input-shape) cell's step as one
+device of the production mesh sees it, and extract the roofline inputs,
+for an H100 of 256 or 512.
 
 The reference lowers and compiles each step for a 256- or 512-chip TPU
-mesh and reads XLA's analyses.  The port runs on one card and has no
-compiler to ask: it runs the step once on fake tensors
-(`launch.hlo_analysis.analyze_step`), through the kernels' ops as on the
-card, and writes the reference's record for each cell:
+mesh and reads XLA's analyses of the SPMD program.  The port has no
+compiler to ask: it places the step's parameters, optimizer state and
+batch as DTensors on the production mesh over a fake process group of
+512 ranks in this one process (`launch.mesh.fake_world`), with the
+reference's layouts (`launch.sharding`'s three spec functions and a
+`ShardCtx(mesh, dp, tp, ep)` through the models' constraints, the
+serving EP² and the FSDP drop as the reference takes them), runs the
+step once (`launch.hlo_analysis.analyze_step`), through the kernels' ops
+and their sharding rules, and writes the reference's record for each
+cell, per device:
 
   * memory: argument, output and temporary bytes and the peak of the
-    live bytes (the card's allocator rounding) — whether it fits 80 GB;
-  * FLOPs and HBM traffic of the traced ops (`hlo`; `cost_raw` holds
-    the same counts), with 0 collective bytes on one device;
+    live bytes (the card's allocator rounding) — whether it fits 80 GB —
+    and what is live at the peak, by the op that allocated it (`at_peak`);
+  * FLOPs and HBM traffic of the traced ops on the local shards (`hlo`;
+    `cost_raw` holds the same counts), and the collectives' wire bytes
+    and counts by kind;
   * MODEL_FLOPS (6·N_active·D) and the analytic executed-FLOPs breakdown.
 
-The production mesh's parallelism choice (`parallelism_for`, the serving
-and FSDP decisions) is taken as the reference takes it and recorded
-under `parallelism`; one device places nothing.  The trace needs no
-card: its tensors are fake CUDA tensors (`trace_device`) or, on a
-PyTorch built without CUDA, which cannot run an index or record an
-autograd graph even on a fake CUDA tensor, fake meta tensors, which the
-kernels' wrappers send down the same route (their ops' fake versions).
+The mesh's local tensors are meta tensors: DTensor's own bookkeeping
+runs torch ops on real index tensors, which a FakeTensorMode would turn
+fake.  Passed a one-device mesh (`mesh=`), a cell runs unplaced, as one
+card runs it, on fake CUDA tensors (`trace_device`) or, on a PyTorch
+built without CUDA, which cannot run an index or record an autograd
+graph even on a fake CUDA tensor, fake meta tensors, which the kernels'
+wrappers send down the same route (their ops' fake versions); the
+record is then one card's, with the mesh's parallelism choice recorded
+under `parallelism` and nothing placed.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch zamba2-7b --shape decode_32k
@@ -29,6 +40,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import traceback
@@ -42,9 +54,13 @@ from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeSpec,
 from repro_torch.flops.accounting import (model_flops_6nd,
                                           param_count_analytic, step_flops)
 from repro_torch.launch.hlo_analysis import analyze_step, fake_mode
-from repro_torch.launch.mesh import Mesh, axes_of, make_production_mesh
+from repro_torch.launch.mesh import (Mesh, axes_of, fake_world,
+                                     make_production_mesh)
+from repro_torch.launch.sharding import (batch_shardings, distribute_tree,
+                                         opt_state_shardings,
+                                         param_shardings)
 from repro_torch.models import api as models
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import ShardCtx, tree_map
 from repro_torch.optim import adamw
 from repro_torch.train.steps import (make_prefill_step, make_serve_step,
                                      make_train_step)
@@ -84,8 +100,8 @@ def parallelism_for(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
 
 @dataclass
 class Cell:
-    """One cell's step and its fake arguments, and the production mesh's
-    layout for it (read only: one device places nothing)."""
+    """One cell's step and its fake arguments (DTensors on a mesh of more
+    than one device), and the mesh's layout for it."""
 
     fn: object
     args: tuple
@@ -103,8 +119,12 @@ def build_cell(arch, shape, mesh: Mesh, *, fsdp: bool = True,
                opt_cfg: Optional[adamw.OptConfig] = None,
                accum_steps: Optional[int] = None, policy: str = "auto",
                device: Optional[str] = None) -> Optional[Cell]:
-    """The step of one cell and its arguments as fake tensors on `device`
-    (`trace_device()` when None); None for a cell the arch skips.
+    """The step of one cell and its arguments; None for a cell the arch
+    skips.  On a mesh of more than one device (whose process group must
+    be open: `fake_world`) the arguments are DTensors placed by the
+    reference's layouts, holding meta tensors of their local shards, and
+    the step carries the mesh's `ShardCtx`; on one device they are fake
+    tensors on `device` (`trace_device()` when None), unplaced.
 
     `arch` is a name or a `ModelConfig`, `shape` a name of `SHAPES` or a
     `ShapeSpec`.  A train cell's optimizer is the reference's choice
@@ -135,11 +155,14 @@ def build_cell(arch, shape, mesh: Mesh, *, fsdp: bool = True,
     layout = {"dp": list(dp), "tp": tp, "ep": list(ep) if ep else None,
               "fsdp": fsdp, "serving": serving}
 
-    device = device or trace_device()
-    mode = fake_mode()
+    placed = mesh.size > 1
+    ctx = ShardCtx(mesh=mesh, dp=dp, tp=tp, ep=ep) if placed else None
+    device = "meta" if placed else (device or trace_device())
+    mode = contextlib.nullcontext() if placed else fake_mode()
     with mode:
         params = _fake_like(models.abstract_params(cfg), device)
         batch = _fake_like(input_specs(cfg, shape), device)
+        opt_state = None
         if shape.kind == "train":
             big = cfg.num_layers * cfg.d_model > 250_000
             if opt_cfg is None:
@@ -152,44 +175,64 @@ def build_cell(arch, shape, mesh: Mesh, *, fsdp: bool = True,
             layout.update(accum_steps=accum, opt=opt_cfg.moment_dtype
                           + ("/factored_v" if opt_cfg.factored_v else ""))
             opt_state = adamw.init(opt_cfg, params)
-            fn = make_train_step(cfg, opt_cfg, accum_steps=accum)
+        if placed:
+            if opt_state is not None:
+                opt_state = distribute_tree(opt_state, opt_state_shardings(
+                    opt_state, mesh, dp, tp, fsdp), mesh)
+            params = distribute_tree(params, param_shardings(
+                cfg, params, mesh, dp, tp, fsdp, serving=serving), mesh)
+            batch = distribute_tree(batch, batch_shardings(
+                cfg, shape, mesh, dp, tp), mesh)
+        if shape.kind == "train":
+            fn = make_train_step(cfg, opt_cfg, ctx, accum_steps=accum)
             args = (params, opt_state, batch)
         elif shape.kind == "prefill":
-            fn, args = make_prefill_step(cfg), (params, batch)
+            fn, args = make_prefill_step(cfg, ctx), (params, batch)
         else:  # decode
-            fn, args = make_serve_step(cfg), (params, batch)
+            fn, args = make_serve_step(cfg, ctx), (params, batch)
     return Cell(fn, args, cfg, shape, layout)
 
 
 def run_cell(arch, shape, *, multi_pod: bool = False, fsdp: bool = True,
              opt_cfg: Optional[adamw.OptConfig] = None,
              accum_steps: Optional[int] = None,
-             device: Optional[str] = None, trackers=()) -> dict:
-    """The dry run's record of one cell (the reference's schema).
-    `trackers` go to `analyze_step`."""
-    mesh = make_production_mesh(multi_pod=multi_pod)
-    device = device or trace_device()
-    cell = build_cell(arch, shape, mesh, fsdp=fsdp, opt_cfg=opt_cfg,
-                      accum_steps=accum_steps, device=device)
+             device: Optional[str] = None, trackers=(),
+             mesh: Optional[Mesh] = None) -> dict:
+    """The dry run's record of one cell (the reference's schema), per
+    device of `mesh`: the production mesh (`multi_pod` picks which) when
+    None.  A one-device mesh gives one card's record, unplaced.
+    `trackers` go to `analyze_step`.  The fake process group the mesh
+    needs is open only for the call."""
+    mesh = mesh or make_production_mesh(multi_pod=multi_pod)
     name = arch if isinstance(arch, str) else arch.name
     shape_name = shape if isinstance(shape, str) else shape.name
-    if cell is None:
-        return {"arch": name, "shape": shape_name, "skipped": True,
-                "reason": "full-attention arch skips long_500k (DESIGN.md)"}
-    st = analyze_step(cell.fn, *cell.args, trackers=trackers)
+    world = fake_world() if mesh.size > 1 else contextlib.nullcontext()
+    with world:
+        cell = build_cell(arch, shape, mesh, fsdp=fsdp, opt_cfg=opt_cfg,
+                          accum_steps=accum_steps, device=device)
+        if cell is None:
+            return {"arch": name, "shape": shape_name, "skipped": True,
+                    "reason": "full-attention arch skips long_500k "
+                              "(DESIGN.md)"}
+        st = analyze_step(cell.fn, *cell.args, trackers=trackers)
+        del cell.args
     cfg, shape = cell.cfg, cell.shape
     analytic = step_flops(cfg, shape, executed=True,
                           remat=(cfg.remat != "none"))
     return {
         "arch": name, "shape": shape_name,
-        "mesh": "1", "devices": 1,
-        "trace_device": device,
+        "mesh": "x".join(map(str, mesh.axis_sizes)) if mesh.size > 1
+        else "1",
+        "devices": mesh.size,
+        "trace_device": "meta" if mesh.size > 1
+        else (device or trace_device()),
         "parallelism": cell.layout,
         "lower_s": st.trace_s, "compile_s": 0.0,
         "memory": {"argument_bytes": st.argument_bytes,
                    "output_bytes": st.output_bytes,
                    "temp_bytes": st.temp_bytes,
-                   "peak_bytes": st.peak_bytes},
+                   "peak_bytes": st.peak_bytes,
+                   "at_peak": st.at_peak},
         # no separate compiler estimate: the traced counts again
         "cost_raw": {"flops": st.flops, "bytes_accessed": st.traffic_bytes},
         "hlo": {"flops": st.flops,

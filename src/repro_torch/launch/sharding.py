@@ -10,8 +10,11 @@ Scheme (DESIGN.md §4):
 
 A spec is a tuple with one entry a dimension: None, an axis name, or a
 tuple of names (the form `tuple()` of a jax `PartitionSpec` takes).  The
-rules are pure functions over `launch.mesh.Mesh`; nothing places a
-tensor: on one device every spec of the one-device mesh holds already.
+rules are pure functions over `launch.mesh.Mesh`.  `placements` turns a
+spec into a DTensor's placements on the mesh, and `distribute_tree`
+places a tree by a spec tree: each leaf becomes a DTensor whose local
+tensor is this rank's shard (a fake tensor of the shard's shape for a
+fake leaf, so a trace holds one device's bytes, never the global ones).
 Trees are the port's dict trees; a leaf's path is written as the
 reference's `keystr` writes it (`['mu']['embed']['m']`), which is what
 the rules match.
@@ -20,6 +23,8 @@ from __future__ import annotations
 
 import math
 import re
+
+import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec, input_specs
 from repro_torch.launch.mesh import Mesh
@@ -186,3 +191,83 @@ def dp_seq(mesh: Mesh, dp, s):
     them (single-stream long-context decode)."""
     S = s.shape[2]
     return dp if S % _axis_size(mesh, dp) == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# placing tensors
+# ---------------------------------------------------------------------------
+def placements(spec: tuple, mesh: Mesh) -> tuple:
+    """A DTensor's placements for `spec` on `mesh`: `Shard(d)` on each
+    mesh dimension of more than one device that the spec names for
+    tensor dimension d, and `Replicate()` on the others.  A tuple of names shards one dimension
+    over several mesh dimensions, the first named the major one, as a
+    jax `PartitionSpec` does; it must name them in the mesh's order."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * len(mesh.axis_names)
+    for d, axes in enumerate(spec):
+        if axes is None:
+            continue
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        idx = [mesh.axis_names.index(a) for a in names]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec} names {names} out of the mesh's "
+                             f"order {mesh.axis_names}")
+        for i in idx:
+            if out[i] != Replicate():
+                raise ValueError(f"spec {spec} uses axis "
+                                 f"{mesh.axis_names[i]} twice")
+            if mesh.axis_sizes[i] > 1:  # a split one way is no split
+                out[i] = Shard(d)
+    return tuple(out)
+
+
+def local_shard(t: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
+    """This rank's shard of the global tensor `t` under `spec`: a new
+    fake (or meta) tensor of the shard's shape for a fake or meta `t`, a
+    contiguous copy of its slice of `t` otherwise (a copy even where the
+    slice is all of `t`: the DTensor never aliases it)."""
+    from torch._subclasses.fake_tensor import is_fake
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.utils._python_dispatch import _disable_current_modes
+    dm = mesh.device_mesh
+    with _disable_current_modes():          # integer math on the rank map
+        shape, offset = compute_local_shape_and_global_offset(
+            tuple(t.shape), dm, placements(spec, mesh))
+    if is_fake(t) or t.is_meta:
+        return t.new_empty(shape)
+    index = tuple(slice(o, o + n) for o, n in zip(offset, shape))
+    return t[index].clone(memory_format=torch.contiguous_format)
+
+
+def distribute(t: torch.Tensor, spec: tuple, mesh: Mesh):
+    """`t` (the global tensor, on every rank) as a DTensor on `mesh`
+    placed by `spec`, built from this rank's shard alone
+    (`DTensor.from_local`): the global tensor is never sent anywhere."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local_shard(t, spec, mesh), mesh.device_mesh,
+                              placements(spec, mesh), run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def distribute_tree(tree, specs, mesh: Mesh):
+    """Every leaf of a dict tree as `distribute` places it by the leaf of
+    `specs` (a spec tree of the same structure)."""
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, specs[k], mesh)
+                for k, v in tree.items()}
+    return distribute(tree, specs, mesh)
+
+
+def shard_bytes(tree, specs, mesh: Mesh) -> int:
+    """Bytes of one device's shards of a tree, from its shapes and specs
+    alone: the first device's, which takes the larger part of a split
+    that does not divide (`torch.chunk`'s, as DTensor splits)."""
+    if isinstance(tree, dict):
+        return sum(shard_bytes(tree[k], specs[k], mesh) for k in tree)
+    n = tree.element_size()
+    for i, dim in enumerate(tree.shape):
+        axes = specs[i] if i < len(specs) else None
+        ways = 1 if axes is None else _axis_size(mesh, axes)
+        n *= -(-dim // ways)
+    return n

@@ -14,7 +14,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, ssm_models, transformer
-from repro_torch.models.common import tree_leaves
+from repro_torch.models.common import ShardCtx, tree_leaves
 
 
 def _mod(cfg: ModelConfig):
@@ -47,14 +47,16 @@ def abstract_params(cfg: ModelConfig):
         return _mod(cfg).init_params(cfg, torch.Generator())
 
 
-def forward(cfg: ModelConfig, params, batch, **kw):
-    return _mod(cfg).forward(cfg, params, batch, **kw)
+def forward(cfg: ModelConfig, params, batch,
+            ctx: Optional[ShardCtx] = None, **kw):
+    return _mod(cfg).forward(cfg, params, batch, ctx, **kw)
 
 
-def decode_step(cfg: ModelConfig, params, batch):
+def decode_step(cfg: ModelConfig, params, batch,
+                ctx: Optional[ShardCtx] = None):
     """One token: (logits (B, 1, V), caches), the batch's caches updated
     in place."""
-    return _mod(cfg).decode_step(cfg, params, batch)
+    return _mod(cfg).decode_step(cfg, params, batch, ctx)
 
 
 def param_count(params) -> int:

@@ -12,11 +12,15 @@ where the reference returns updated copies.
 from __future__ import annotations
 
 import math
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import (apply_rope, decode_attention,
-                                       dense_init, flash_attention, rms_norm)
+from repro_torch.models.common import (ShardCtx, apply_rope, constrain,
+                                       decode_attention, dense_init,
+                                       flash_attention, gather_sequence,
+                                       head_shardable, is_dtensor, rms_norm)
 
 
 def _positions(cache_index: torch.Tensor) -> torch.Tensor:
@@ -29,8 +33,37 @@ def _write(cache: torch.Tensor, cache_index: torch.Tensor,
     """cache[:, cache_index] = new[:, 0], in place.  An index past the
     cache's end writes its last row, as the reference's
     `dynamic_update_slice` clamps its start (on the device: no sync)."""
+    if is_dtensor(cache):
+        return _write_sharded(cache, cache_index, new)
     idx = cache_index.reshape(1).long().clamp(0, cache.shape[1] - 1)
     return cache.index_copy_(1, idx, new.to(cache.dtype))
+
+
+def _write_sharded(cache, cache_index, new):
+    """`_write` on a DTensor cache, whose sequence may be split over the
+    mesh: each device writes the row into its own shard, where the row
+    falls in it (rewriting the row it holds there otherwise), with `new`
+    placed as the cache but whole over the sequence.  DTensor has no
+    rule for an index write into a split dimension (XLA's
+    dynamic-update-slice is partitioned this way)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.utils._python_dispatch import _disable_current_modes
+    mesh, place = cache.device_mesh, cache.placements
+    with _disable_current_modes():
+        shape, offset = compute_local_shape_and_global_offset(
+            tuple(cache.shape), mesh, place)
+    row = [Replicate() if p == Shard(1) else p for p in place]
+    new = new.to(cache.dtype).redistribute(mesh, row).to_local()
+    local = cache.to_local()
+    idx = cache_index.full_tensor().reshape(1).long() \
+        .clamp(0, cache.shape[1] - 1) - offset[1]
+    inside = (idx >= 0) & (idx < shape[1])
+    idx = idx.clamp(0, shape[1] - 1)
+    keep = local.index_select(1, idx)
+    local.index_copy_(1, idx, torch.where(inside, new, keep))
+    return cache
 
 
 # ===========================================================================
@@ -50,37 +83,57 @@ def gqa_init(gen, cfg: ModelConfig, dtype):
     return p
 
 
-def _qkv(cfg: ModelConfig, p, x, positions):
-    B, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+def split_heads(t, n: int, ctx):
+    """(B, S, n·hd) -> (B, S, n, hd).  Under a ctx whose model axis does
+    not divide n, the projection is first gathered over that axis: a
+    DTensor splits a sharded dimension only where its leading part
+    divides the mesh (XLA reshards there on its own)."""
+    B, S, nhd = t.shape
+    if not head_shardable(n, ctx):
+        t = constrain(t, ctx, "dp", None, None)
+    return t.reshape(B, S, n, nhd // n)
+
+
+def _qkv(cfg: ModelConfig, p, x, positions, ctx):
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    x = gather_sequence(x, ctx)
+    q = split_heads(x @ p["wq"], H, ctx)
+    k = split_heads(x @ p["wk"], KV, ctx)
+    v = split_heads(x @ p["wv"], KV, ctx)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if head_shardable(H, ctx):
+        q = constrain(q, ctx, "dp", None, "tp", None)
+    if head_shardable(KV, ctx):
+        k = constrain(k, ctx, "dp", None, "tp", None)
+        v = constrain(v, ctx, "dp", None, "tp", None)
     return q, k, v
 
 
-def gqa_apply(cfg: ModelConfig, p, x, *, positions, causal: bool):
+def gqa_apply(cfg: ModelConfig, p, x, *, positions, causal: bool,
+              ctx: Optional[ShardCtx] = None):
     """Full-sequence self-attention."""
     B, S, _ = x.shape
-    q, k, v = _qkv(cfg, p, x, positions)
-    o = flash_attention(q, k, v, causal=causal)
-    return o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    q, k, v = _qkv(cfg, p, x, positions, ctx)
+    o = flash_attention(q, k, v, causal=causal, ctx=ctx)
+    out = o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    return constrain(out, ctx, "dp", "tp", None)
 
 
-def gqa_decode(cfg: ModelConfig, p, x, k_cache, v_cache, cache_index):
+def gqa_decode(cfg: ModelConfig, p, x, k_cache, v_cache, cache_index, *,
+               ctx: Optional[ShardCtx] = None):
     """x: (B, 1, d); caches: (B, S, KV, hd), updated in place.  Returns
     the output (B, 1, d)."""
     B = x.shape[0]
-    q, k_new, v_new = _qkv(cfg, p, x, _positions(cache_index))
+    q, k_new, v_new = _qkv(cfg, p, x, _positions(cache_index), ctx)
     _write(k_cache, cache_index, k_new)
     _write(v_cache, cache_index, v_new)
     o = decode_attention(q, k_cache, v_cache, cache_index)
-    return o.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    out = o.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    return constrain(out, ctx, "dp", None, None)
 
 
 # ===========================================================================
@@ -104,17 +157,20 @@ def mla_init(gen, cfg: ModelConfig, dtype):
     }
 
 
-def _mla_q(cfg, p, x, positions):
+def _mla_q(cfg, p, x, positions, ctx):
     B, S, _ = x.shape
     H = cfg.num_heads
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]
     q = q.reshape(B, S, H, dn + dr)
     q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
-    return torch.cat([q[..., :dn], q_rope], -1)
+    q = torch.cat([q[..., :dn], q_rope], -1)
+    if head_shardable(H, ctx):
+        q = constrain(q, ctx, "dp", None, "tp", None)
+    return q
 
 
-def _mla_kv_from_latent(cfg, p, latent):
+def _mla_kv_from_latent(cfg, p, latent, ctx):
     """latent: (B, S, kv_lora + rope) -> per-head k (nope+rope), v."""
     B, S, _ = latent.shape
     H = cfg.num_heads
@@ -124,23 +180,31 @@ def _mla_kv_from_latent(cfg, p, latent):
     kv = kv.reshape(B, S, H, dn + dv)
     k = torch.cat([kv[..., :dn],
                    k_rope[:, :, None, :].expand(B, S, H, dr)], -1)
-    return k, kv[..., dn:]
+    v = kv[..., dn:]
+    if head_shardable(H, ctx):
+        k = constrain(k, ctx, "dp", None, "tp", None)
+        v = constrain(v, ctx, "dp", None, "tp", None)
+    return k, v
 
 
-def mla_apply(cfg: ModelConfig, p, x, *, positions, causal: bool):
+def mla_apply(cfg: ModelConfig, p, x, *, positions, causal: bool,
+              ctx: Optional[ShardCtx] = None):
     B, S, _ = x.shape
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = _mla_q(cfg, p, x, positions)
+    q = _mla_q(cfg, p, x, positions, ctx)
     latent = x @ p["wkv_a"]  # (B, S, kv_lora + rope)
     k_rope = apply_rope(latent[..., cfg.kv_lora_rank:][:, :, None, :],
                         positions, cfg.rope_theta)[:, :, 0, :]
     latent = torch.cat([latent[..., :cfg.kv_lora_rank], k_rope], -1)
-    k, v = _mla_kv_from_latent(cfg, p, latent)
-    o = flash_attention(q, k, v, causal=causal, scale=(dn + dr) ** -0.5)
-    return o.reshape(B, S, cfg.num_heads * cfg.v_head_dim) @ p["wo"]
+    k, v = _mla_kv_from_latent(cfg, p, latent, ctx)
+    o = flash_attention(q, k, v, causal=causal, scale=(dn + dr) ** -0.5,
+                        ctx=ctx)
+    out = o.reshape(B, S, cfg.num_heads * cfg.v_head_dim) @ p["wo"]
+    return constrain(out, ctx, "dp", "tp", None)
 
 
-def mla_decode(cfg: ModelConfig, p, x, kv_cache, cache_index):
+def mla_decode(cfg: ModelConfig, p, x, kv_cache, cache_index, *,
+               ctx: Optional[ShardCtx] = None):
     """Absorbed MLA decode against the compressed latent cache.
 
     kv_cache: (B, S, kv_lora + rope) holding the *normalized* latent plus the
@@ -155,7 +219,7 @@ def mla_decode(cfg: ModelConfig, p, x, kv_cache, cache_index):
                        cfg.kv_lora_rank)
     f32 = torch.float32
     positions = _positions(cache_index)
-    q = _mla_q(cfg, p, x, positions)  # (B, 1, H, dn+dr)
+    q = _mla_q(cfg, p, x, positions, ctx)  # (B, 1, H, dn+dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
 
     latent = x @ p["wkv_a"]
@@ -179,4 +243,5 @@ def mla_decode(cfg: ModelConfig, p, x, kv_cache, cache_index):
     prob = torch.softmax(s, dim=-1)
     o_lat = torch.einsum("bhs,bsr->bhr", prob, cached_c)
     o = torch.einsum("bhr,rhd->bhd", o_lat, w_v.to(f32))
-    return o.reshape(B, 1, H * dv).to(x.dtype) @ p["wo"]
+    out = o.reshape(B, 1, H * dv).to(x.dtype) @ p["wo"]
+    return constrain(out, ctx, "dp", None, None)

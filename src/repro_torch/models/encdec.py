@@ -6,14 +6,18 @@ whisper's learned positions, as in the reference.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import (dense_init, flash_attention,
-                                       remat, rms_norm, stack_init)
-from repro_torch.models.transformer import layer, lm_logits, n_layers
+from repro_torch.models.common import (ShardCtx, constrain, dense_init,
+                                       embed, flash_attention,
+                                       gather_sequence, head_shardable,
+                                       remat, rms_norm, sharded, stack_init)
+from repro_torch.models.transformer import _sp, layer, lm_logits, n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -27,15 +31,19 @@ def cross_init(gen, cfg: ModelConfig, dtype):
             "wo": dense_init(gen, (H * hd, d), dtype)}
 
 
-def cross_apply(cfg: ModelConfig, p, x, enc_out):
+def cross_apply(cfg: ModelConfig, p, x, enc_out, ctx=None):
     B, S, _ = x.shape
     Se = enc_out.shape[1]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (enc_out @ p["wk"]).reshape(B, Se, KV, hd)
-    v = (enc_out @ p["wv"]).reshape(B, Se, KV, hd)
-    o = flash_attention(q, k, v, causal=False)
-    return o.reshape(B, S, H * hd) @ p["wo"]
+    x, enc_out = gather_sequence(x, ctx), gather_sequence(enc_out, ctx)
+    q = attn.split_heads(x @ p["wq"], H, ctx)
+    k = attn.split_heads(enc_out @ p["wk"], KV, ctx)
+    v = attn.split_heads(enc_out @ p["wv"], KV, ctx)
+    if head_shardable(H, ctx):
+        q = constrain(q, ctx, "dp", None, "tp", None)
+    o = flash_attention(q, k, v, causal=False, ctx=ctx)
+    out = o.reshape(B, S, H * hd) @ p["wo"]
+    return constrain(out, ctx, "dp", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -75,57 +83,66 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-def encode(cfg: ModelConfig, params, frame_embeds):
-    x = frame_embeds.to(getattr(torch, cfg.dtype))
+def encode(cfg: ModelConfig, params, frame_embeds, ctx=None):
+    x = _sp(frame_embeds.to(getattr(torch, cfg.dtype)), ctx)
     positions = torch.arange(x.shape[1], device=x.device)
 
     def body(x, p):
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        x = x + attn.gqa_apply(cfg, p["attn"], h, positions=positions,
-                               causal=False)
+        x = _sp(x + attn.gqa_apply(cfg, p["attn"], h, positions=positions,
+                                   causal=False, ctx=ctx), ctx)
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        return x + moe_mod.mlp_apply(cfg, p["mlp"], h)
+        return _sp(x + moe_mod.mlp_apply(cfg, p["mlp"], h, ctx), ctx)
     for i in range(n_layers(params["enc_layers"])):
         x = remat(cfg, body, x, layer(params["enc_layers"], i))
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _dec_block(cfg, p, x, enc_out, positions):
+def _dec_block(cfg, p, x, enc_out, positions, ctx):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + attn.gqa_apply(cfg, p["attn"], h, positions=positions,
-                           causal=True)
+    x = _sp(x + attn.gqa_apply(cfg, p["attn"], h, positions=positions,
+                               causal=True, ctx=ctx), ctx)
     h = rms_norm(x, p["norm3"], cfg.norm_eps)
-    x = x + cross_apply(cfg, p["cross"], h, enc_out)
+    x = _sp(x + cross_apply(cfg, p["cross"], h, enc_out, ctx), ctx)
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + moe_mod.mlp_apply(cfg, p["mlp"], h)
+    return _sp(x + moe_mod.mlp_apply(cfg, p["mlp"], h, ctx), ctx)
 
 
-def forward(cfg: ModelConfig, params, batch):
-    enc_out = encode(cfg, params, batch["frame_embeds"])
-    x = params["embed"][batch["tokens"]].to(getattr(torch, cfg.dtype))
-    positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(n_layers(params["dec_layers"])):
-        x = remat(cfg, _dec_block, cfg, layer(params["dec_layers"], i), x,
-                  enc_out, positions)
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return lm_logits(cfg, params, h)
+def forward(cfg: ModelConfig, params, batch, ctx: Optional[ShardCtx] = None):
+    with sharded(ctx):
+        enc_out = encode(cfg, params, batch["frame_embeds"], ctx)
+        x = _sp(embed(params["embed"], batch["tokens"]).to(
+            getattr(torch, cfg.dtype)), ctx)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for i in range(n_layers(params["dec_layers"])):
+            x = remat(cfg, _dec_block, cfg, layer(params["dec_layers"], i),
+                      x, enc_out, positions, ctx)
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return lm_logits(cfg, params, h, ctx)
 
 
-def decode_step(cfg: ModelConfig, params, batch):
+def decode_step(cfg: ModelConfig, params, batch,
+                ctx: Optional[ShardCtx] = None):
     """Decoder step with self-attn KV cache (updated in place);
     cross-attn reads encoder_out."""
+    with sharded(ctx):
+        return _decode_step(cfg, params, batch, ctx)
+
+
+def _decode_step(cfg: ModelConfig, params, batch, ctx):
     idx = batch["cache_index"]
     enc_out = batch["encoder_out"].to(getattr(torch, cfg.dtype))
-    x = params["embed"][batch["tokens"]].to(getattr(torch, cfg.dtype))
+    x = embed(params["embed"], batch["tokens"]).to(getattr(torch, cfg.dtype))
+    x = constrain(x, ctx, "dp", None, None)
     kc, vc = batch["k_cache"], batch["v_cache"]
     for i in range(n_layers(params["dec_layers"])):
         p = layer(params["dec_layers"], i)
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        a = attn.gqa_decode(cfg, p["attn"], h, kc[i], vc[i], idx)
+        a = attn.gqa_decode(cfg, p["attn"], h, kc[i], vc[i], idx, ctx=ctx)
         x = x + a
         h = rms_norm(x, p["norm3"], cfg.norm_eps)
-        x = x + cross_apply(cfg, p["cross"], h, enc_out)
+        x = x + cross_apply(cfg, p["cross"], h, enc_out, ctx)
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + moe_mod.mlp_apply(cfg, p["mlp"], h)
+        x = x + moe_mod.mlp_apply(cfg, p["mlp"], h, ctx)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return lm_logits(cfg, params, h), {"k_cache": kc, "v_cache": vc}
+    return lm_logits(cfg, params, h, ctx), {"k_cache": kc, "v_cache": vc}

@@ -9,6 +9,7 @@ recurrent step, in plain PyTorch.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -16,7 +17,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import compute_dtype
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.kernels.sharding import on_shards
+from repro_torch.models.common import (ShardCtx, constrain, dense_init,
+                                       gather_sequence, head_shardable,
+                                       is_dtensor, rms_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -46,7 +50,11 @@ def mamba_init(gen, cfg: ModelConfig, dtype):
 # causal depthwise conv
 # ---------------------------------------------------------------------------
 def causal_conv(x, w, b):
-    """Depthwise causal conv as W shifted multiplies.  x: (B, S, C); w: (W, C)."""
+    """Depthwise causal conv as W shifted multiplies.  x: (B, S, C); w: (W, C).
+
+    On DTensors it runs on each device's shards (`_conv_on_shards`)."""
+    if is_dtensor(x):
+        return _conv_on_shards(x, w, b)
     W = w.shape[0]
     S = x.shape[1]
     xp = F.pad(x, (0, 0, W - 1, 0))
@@ -54,6 +62,21 @@ def causal_conv(x, w, b):
     for i in range(W):
         out = out + xp[:, i:i + S] * w[i]
     return out
+
+
+def _conv_on_shards(x, w, b):
+    """`causal_conv` of DTensors: x split over the batch and the channels
+    only (its sequence whole: the conv reaches W - 1 positions back), w
+    and b over the channels as x is, the conv on each device's own
+    shards.  The shifted slices of a DTensor split over the sequence
+    would gather their gradients whole in the backward."""
+    from torch.distributed.tensor import Replicate, Shard
+    place = [p if p in (Shard(0), Shard(2)) else Replicate()
+             for p in x.placements]
+    ch = [Shard(0) if p == Shard(2) else Replicate() for p in place]
+    wch = [Shard(1) if p == Shard(2) else Replicate() for p in place]
+    return on_shards(causal_conv, (x, w, b), (place, wch, ch),
+                     [(place, x.shape)])
 
 
 def conv_step(x_new, conv_state, w, b):
@@ -141,7 +164,10 @@ def ssd_step(x, dt, A, Bm, Cm, h):
     """Single-token SSD recurrence.
 
     x: (B, nh, hd); dt: (B, nh); Bm/Cm: (B, g, ds); h: (B, nh, hd, ds).
+    On a DTensor state it runs on each device's shards (`_step_on_shards`).
     """
+    if is_dtensor(h):
+        return _step_on_shards(x, dt, A, Bm, Cm, h)
     Bsz, nh, hd = x.shape
     g, ds = Bm.shape[1], Bm.shape[2]
     hpg = nh // g
@@ -155,6 +181,33 @@ def ssd_step(x, dt, A, Bm, Cm, h):
     y = torch.einsum("bghpd,bgd->bghp", h.reshape(Bsz, g, hpg, hd, ds),
                      Cm.to(f32))
     return y.reshape(Bsz, nh, hd).to(x.dtype), h
+
+
+def _step_on_shards(x, dt, A, Bm, Cm, h):
+    """`ssd_step` with the state a DTensor: split over the batch and the
+    heads as the state is (`launch.sharding`'s ssm_state), the groups of
+    B/C first repeated r times, the fewest that split them alike (as
+    `_pin_heads`), or the heads gathered where no r does; the step then
+    runs on each device's shards.  Returns DTensors placed as the state.
+    DTensor cannot split a sharded head dimension into (g, heads a
+    group) where g does not divide the mesh."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = h.device_mesh
+    place = [p if p in (Shard(0), Shard(1)) else Replicate()
+             for p in h.placements]
+    ways = math.prod(mesh.size(i) for i, p in enumerate(place)
+                     if p == Shard(1))
+    nh, g = x.shape[1], Bm.shape[1]
+    r = ways // math.gcd(g, ways)
+    if r > 1 and (nh // g) % r == 0:
+        Bm = Bm.repeat_interleave(r, dim=1)
+        Cm = Cm.repeat_interleave(r, dim=1)
+    elif r > 1:
+        place = [Replicate() if p == Shard(1) else p for p in place]
+    a_place = [Shard(0) if p == Shard(1) else Replicate() for p in place]
+    return on_shards(ssd_step, (x, dt, A, Bm, Cm, h),
+                     (place, place, a_place, place, place, place),
+                     [(place, x.shape), (place, h.shape)])
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +229,63 @@ def _split_xbc(cfg: ModelConfig, xBC):
     return x, Bm, Cm
 
 
-def mamba_apply(cfg: ModelConfig, p, u):
+def _pin_heads(ctx, x, dt, Bm, Cm):
+    """The SSD's inputs head-sharded over the model axis, as the
+    reference pins its per-head intermediates: x (B, S, nh, hd) and dt
+    (B, S, nh) on nh, and B/C (B, S, g, ds) on their groups, each group
+    first repeated r times, the fewest that make g·r divide the axis
+    (the reference broadcasts them to one copy a head), so that every
+    device holds whole groups of its heads.  Unchanged where nh does not
+    divide the axis, or r does not divide a group's heads."""
+    nh, g = x.shape[2], Bm.shape[2]
+    if not head_shardable(nh, ctx):
+        return x, dt, Bm, Cm
+    n = ctx.mesh.shape[ctx.tp]
+    r = n // math.gcd(g, n)
+    if (nh // g) % r:
+        return x, dt, Bm, Cm
+    if r > 1:
+        Bm = Bm.repeat_interleave(r, dim=2)
+        Cm = Cm.repeat_interleave(r, dim=2)
+    return (constrain(x, ctx, "dp", None, "tp", None),
+            constrain(dt, ctx, "dp", None, "tp"),
+            constrain(Bm, ctx, "dp", None, "tp", None),
+            constrain(Cm, ctx, "dp", None, "tp", None))
+
+
+def _sharded_projections(cfg: ModelConfig, p, u, ctx):
+    """(z, x, B, C, dt) of `mamba_apply`, each its own column-parallel
+    product with its columns of `in_proj` (and x, B, C each through the
+    depthwise conv with their channels of it): the same values as
+    slicing the whole projection, but a DTensor slices a split dimension
+    only after gathering it, and the projection's parts do not fall on
+    the model axis's shard boundaries, so slicing the (B, S, in_dim)
+    projection would gather it whole, for each part.  Sliced so, the
+    weights' columns are gathered instead (a few per cent of the
+    bytes), then split again as the reference's spec splits them.  The
+    reference's constraint on the whole projection applies to each
+    part."""
+    di, g, ds = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state
+    bounds = [0, di, 2 * di, 2 * di + g * ds, 2 * di + 2 * g * ds,
+              2 * di + 2 * g * ds + cfg.ssm_nheads]
+    w, cw, cb = p["in_proj"], p["conv_w"], p["conv_b"]
+    u = gather_sequence(u, ctx)
+
+    def cols(t, a, b):
+        return t[..., a:b].redistribute(t.device_mesh, t.placements)
+
+    parts = []
+    for i, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+        h = constrain(u @ cols(w, a, b), ctx, "dp", None, "tp")
+        if 1 <= i <= 3:                  # x, B, C: the conv's channels
+            c0, c1 = a - di, b - di
+            h = F.silu(causal_conv(h, cols(cw, c0, c1), cols(cb, c0, c1)))
+        parts.append(h)
+    z, x, Bm, Cm, dt = parts
+    return z, x, Bm, Cm, dt
+
+
+def mamba_apply(cfg: ModelConfig, p, u, ctx: Optional[ShardCtx] = None):
     """Full-sequence Mamba2 mixer.  u: (B, S, d) (already normed).
 
     The SSD goes through `ops.ssd`: the intra-chunk kernel on the card,
@@ -187,21 +296,32 @@ def mamba_apply(cfg: ModelConfig, p, u):
     B, S, _ = u.shape
     nh, hd, g, ds = (cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_ngroups,
                      cfg.ssm_state)
-    proj = u @ p["in_proj"]
-    z, xBC, dt_raw = _split_in_proj(cfg, proj)
-    xBC = F.silu(causal_conv(xBC, p["conv_w"], p["conv_b"]))
-    x, Bm, Cm = _split_xbc(cfg, xBC)
+    if is_dtensor(u) and ctx is not None and ctx.size("tp") > 1:
+        z, x, Bm, Cm, dt_raw = _sharded_projections(cfg, p, u, ctx)
+    else:
+        proj = u @ p["in_proj"]
+        z, xBC, dt_raw = _split_in_proj(cfg, proj)
+        xBC = F.silu(causal_conv(xBC, p["conv_w"], p["conv_b"]))
+        x, Bm, Cm = _split_xbc(cfg, xBC)
     x = x.reshape(B, S, nh, hd)
+    if not head_shardable(g, ctx):
+        # a DTensor cannot split g·ds into g groups the axis does not
+        # divide: B/C gathered over it (g·ds channels a token)
+        Bm = constrain(Bm, ctx, "dp", None, None)
+        Cm = constrain(Cm, ctx, "dp", None, None)
     Bm = Bm.reshape(B, S, g, ds)
     Cm = Cm.reshape(B, S, g, ds)
     # softplus in the compute dtype; dt is upcast to f32 inside the SSD
     dt = F.softplus(dt_raw + p["dt_bias"].to(dt_raw.dtype))
     A = -torch.exp(p["A_log"])
+    x, dt, Bm, Cm = _pin_heads(ctx, x, dt, Bm, Cm)
     y = ops.ssd(x, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
     y = y + p["D"].to(y.dtype)[:, None] * x
     y = y.reshape(B, S, cfg.d_inner)
+    y = constrain(y, ctx, "dp", None, "tp")
     y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    out = y @ p["out_proj"]
+    return constrain(out, ctx, "dp", "tp", None)
 
 
 def mamba_decode(cfg: ModelConfig, p, u, ssm_state, conv_state):

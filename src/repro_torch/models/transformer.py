@@ -4,19 +4,24 @@ Layers are stacked along a leading L axis, as in the reference, and
 driven by a Python loop over it (the reference's `lax.scan`); a stacked
 leaf may also be a sequence of per-layer tensors (the train step's
 per-layer gradient leaves), which indexes alike.  Each layer body runs
-under `common.remat` (the reference's `_remat`); the reference's `_sp`
-is a sharding constraint, which one device does not need.
-Heterogeneous stacks (deepseek first-k dense layers) are two stacks.
+under `common.remat` (the reference's `_remat`); `_sp` is the
+reference's sequence-parallel constraint on the residual stream, the
+identity without a `ShardCtx`.  Heterogeneous stacks (deepseek first-k
+dense layers) are two stacks.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import (dense_init, remat, rms_norm,
-                                       stack_init, tree_map)
+from repro_torch.models.common import (ShardCtx, constrain, dense_init,
+                                       embed, gather_sequence, is_dtensor,
+                                       remat, rms_norm, sharded, stack_init,
+                                       tree_map)
 
 
 # ---------------------------------------------------------------------------
@@ -70,22 +75,34 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-def block_apply(cfg: ModelConfig, p, x, positions, *, moe: bool,
+def _sp(x, ctx):
+    """Megatron-style sequence-parallel residual-stream constraint."""
+    if ctx is None:
+        return x
+    S = x.shape[1]
+    if ctx.tp is not None and S % ctx.mesh.shape[ctx.tp] == 0:
+        return constrain(x, ctx, "dp", "tp", None)
+    return constrain(x, ctx, "dp", None, None)
+
+
+def block_apply(cfg: ModelConfig, p, x, positions, ctx, *, moe: bool,
                 causal: bool = True):
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    # norm outputs pinned to SP: the attention/MLP full-sequence gather
+    # then moves the activation's dtype, not the f32 rms statistics
+    h = _sp(rms_norm(x, p["norm1"], cfg.norm_eps), ctx)
     if cfg.family == "mla_moe":
         a = attn.mla_apply(cfg, p["attn"], h, positions=positions,
-                           causal=causal)
+                           causal=causal, ctx=ctx)
     else:
         a = attn.gqa_apply(cfg, p["attn"], h, positions=positions,
-                           causal=causal)
-    x = x + a
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+                           causal=causal, ctx=ctx)
+    x = _sp(x + a, ctx)
+    h = _sp(rms_norm(x, p["norm2"], cfg.norm_eps), ctx)
     if moe:
-        m = moe_mod.moe_apply(cfg, p["mlp"], h)
+        m = moe_mod.moe_apply(cfg, p["mlp"], h, ctx)
     else:
-        m = moe_mod.mlp_apply(cfg, p["mlp"], h)
-    return x + m
+        m = moe_mod.mlp_apply(cfg, p["mlp"], h, ctx)
+    return _sp(x + m, ctx)
 
 
 def layer(stacked, i: int):
@@ -99,9 +116,9 @@ def n_layers(stacked) -> int:
     return len(stacked)
 
 
-def scan_stack(cfg: ModelConfig, stacked, x, positions, *, moe: bool):
+def scan_stack(cfg: ModelConfig, stacked, x, positions, ctx, *, moe: bool):
     def body(x, p):
-        return block_apply(cfg, p, x, positions, moe=moe)
+        return block_apply(cfg, p, x, positions, ctx, moe=moe)
     for i in range(n_layers(stacked)):
         x = remat(cfg, body, x, layer(stacked, i))
     return x
@@ -110,66 +127,86 @@ def scan_stack(cfg: ModelConfig, stacked, x, positions, *, moe: bool):
 # ---------------------------------------------------------------------------
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
-def embed_inputs(cfg: ModelConfig, params, batch):
-    tok = params["embed"][batch["tokens"]]  # gather
+def embed_inputs(cfg: ModelConfig, params, batch, ctx):
+    tok = embed(params["embed"], batch["tokens"])  # gather
     if cfg.family == "vlm":
         img = batch["patch_embeds"] @ params["mm_connector"]
         x = torch.cat([img, tok], dim=1)
     else:
         x = tok
-    return x.to(getattr(torch, cfg.dtype))
+    return _sp(x.to(getattr(torch, cfg.dtype)), ctx)
 
 
-def forward(cfg: ModelConfig, params, batch, return_hidden: bool = False):
+def forward(cfg: ModelConfig, params, batch, ctx: Optional[ShardCtx] = None,
+            return_hidden: bool = False):
     """Full-sequence forward -> logits (B, S, V)."""
-    x = embed_inputs(cfg, params, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
-    if "dense_layers" in params:
-        x = scan_stack(cfg, params["dense_layers"], x, positions, moe=False)
-    if "moe_layers" in params:
-        x = scan_stack(cfg, params["moe_layers"], x, positions, moe=True)
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = lm_logits(cfg, params, h)
+    with sharded(ctx):
+        x = embed_inputs(cfg, params, batch, ctx)
+        positions = torch.arange(x.shape[1], device=x.device)
+        if "dense_layers" in params:
+            x = scan_stack(cfg, params["dense_layers"], x, positions, ctx,
+                           moe=False)
+        if "moe_layers" in params:
+            x = scan_stack(cfg, params["moe_layers"], x, positions, ctx,
+                           moe=True)
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = lm_logits(cfg, params, h, ctx)
     if return_hidden:
         return logits, h
     return logits
 
 
-def lm_logits(cfg: ModelConfig, params, h):
+def lm_logits(cfg: ModelConfig, params, h, ctx=None):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ w.to(h.dtype)
+    h = gather_sequence(h, ctx)
+    if ctx is not None and ctx.tp is not None and is_dtensor(w):
+        # the vocabulary split over the model axis before the product, so
+        # each device computes its own logits, evenly or not: XLA pads a
+        # vocabulary the axis does not divide (mamba2-780m's 50,280)
+        w = w.redistribute(w.device_mesh, ctx.spec(None, "tp"))
+        return h @ w.to(h.dtype)
+    return constrain(h @ w.to(h.dtype), ctx, "dp", None, "tp")
 
 
-def mtp_logits(cfg: ModelConfig, params, h, batch):
+def mtp_logits(cfg: ModelConfig, params, h, batch,
+               ctx: Optional[ShardCtx] = None):
     """DeepSeek-V3 multi-token prediction: one extra block predicting t+2.
 
     h: main-model hidden states (B, S, d).  Combines h[t] with emb(tok[t+1]).
     """
     p = params["mtp"]
-    tok = params["embed"][batch["tokens"]]
+    tok = embed(params["embed"], batch["tokens"])
     if cfg.family == "vlm":
         raise NotImplementedError
-    nxt = torch.roll(tok, -1, dims=1).to(h.dtype)
-    z = torch.cat([rms_norm(h, p["norm"], cfg.norm_eps), nxt], -1)
-    z = z @ p["proj"]
-    z = block_apply(cfg, p["block"], z,
-                    torch.arange(z.shape[1], device=z.device),
-                    moe=bool(cfg.num_experts))
-    return lm_logits(cfg, params, rms_norm(z, params["final_norm"],
-                                           cfg.norm_eps))
+    with sharded(ctx):
+        nxt = torch.roll(tok, -1, dims=1).to(h.dtype)
+        z = torch.cat([rms_norm(h, p["norm"], cfg.norm_eps), nxt], -1)
+        z = _sp(gather_sequence(z, ctx) @ p["proj"], ctx)
+        z = block_apply(cfg, p["block"], z,
+                        torch.arange(z.shape[1], device=z.device), ctx,
+                        moe=bool(cfg.num_experts))
+        return lm_logits(cfg, params, rms_norm(z, params["final_norm"],
+                                               cfg.norm_eps), ctx)
 
 
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
-def decode_step(cfg: ModelConfig, params, batch):
+def decode_step(cfg: ModelConfig, params, batch,
+                ctx: Optional[ShardCtx] = None):
     """One decode step.  batch: tokens (B,1), cache_index (), caches.
 
     Returns (logits (B, 1, V), caches): the batch's caches, updated in
     place at cache_index.
     """
+    with sharded(ctx):
+        return _decode_step(cfg, params, batch, ctx)
+
+
+def _decode_step(cfg: ModelConfig, params, batch, ctx):
     idx = batch["cache_index"]
-    x = params["embed"][batch["tokens"]].to(getattr(torch, cfg.dtype))
+    x = embed(params["embed"], batch["tokens"]).to(getattr(torch, cfg.dtype))
+    x = constrain(x, ctx, "dp", None, None)
     mla = cfg.family == "mla_moe"
     caches = ({"kv_cache": batch["kv_cache"]} if mla else
               {"k_cache": batch["k_cache"], "v_cache": batch["v_cache"]})
@@ -182,15 +219,15 @@ def decode_step(cfg: ModelConfig, params, batch):
             h = rms_norm(x, p["norm1"], cfg.norm_eps)
             if mla:
                 a = attn.mla_decode(cfg, p["attn"], h,
-                                    caches["kv_cache"][c], idx)
+                                    caches["kv_cache"][c], idx, ctx=ctx)
             else:
                 a = attn.gqa_decode(cfg, p["attn"], h, caches["k_cache"][c],
-                                    caches["v_cache"][c], idx)
+                                    caches["v_cache"][c], idx, ctx=ctx)
             x = x + a
             h = rms_norm(x, p["norm2"], cfg.norm_eps)
-            x = x + (moe_mod.moe_apply(cfg, p["mlp"], h) if moe
-                     else moe_mod.mlp_apply(cfg, p["mlp"], h))
+            x = x + (moe_mod.moe_apply(cfg, p["mlp"], h, ctx) if moe
+                     else moe_mod.mlp_apply(cfg, p["mlp"], h, ctx))
         off += n_layers(params[name])
 
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return lm_logits(cfg, params, h), caches
+    return lm_logits(cfg, params, h, ctx), caches

@@ -19,6 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.kernels.sharding import is_dtensor, on_shards
 from repro_torch.models.common import tree_leaves, tree_map
 
 
@@ -76,10 +77,21 @@ def init(cfg: OptConfig, params):
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _split_dim0(t) -> bool:
+    """t is a DTensor split along dim 0 (an expert or vocabulary dim:
+    stacked layers are never split), which does not unbind."""
+    return is_dtensor(t) and any(getattr(p, "dim", None) == 0
+                                 for p in t.placements if p.is_shard())
+
+
 def leading_slices(t, ndim=None):
     """The unit of a leaf's f32 work: t's slices along dim 0 when the
-    leaf (`ndim` dims, t's own when None) has ndim >= 3, else t whole."""
-    return t.unbind(0) if (t.ndim if ndim is None else ndim) >= 3 else (t,)
+    leaf (`ndim` dims, t's own when None) has ndim >= 3, else t whole;
+    whole, too, for a DTensor split along dim 0 (its shards are the
+    unit there)."""
+    if ndim is None:
+        ndim = 0 if _split_dim0(t) else t.ndim
+    return t.unbind(0) if ndim >= 3 else (t,)
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -92,6 +104,55 @@ def global_norm(tree) -> torch.Tensor:
     return total.sqrt()
 
 
+def _placed_as(t, state):
+    """t, a DTensor, placed as its `state` leaf: a factored statistic is
+    reduced over its split dimension here, a vector, before the outer
+    product makes it a matrix (whose reduction would move the matrix)."""
+    if not is_dtensor(t):
+        return t
+    return t.redistribute(state.device_mesh, state.placements)
+
+
+def _factors_placed_as(row, col, p):
+    """The factored statistics, DTensors, each split along its dims as
+    the parameter p is along the matching ones (row: p's but the last;
+    col: p's but the second to last), so that row ⊗ col is formed on
+    each device's own block of p: the specs of the state's factors come
+    from rules meant for p's shape and may split them otherwise."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not is_dtensor(p):
+        return row, col
+    last = p.ndim - 1
+    r_place, c_place = [], []
+    for q in p.placements:
+        d = q.dim if isinstance(q, Shard) else None
+        r_place.append(Shard(d) if d is not None and d < last
+                       else Replicate())
+        c_place.append(Replicate() if d is None or d == last - 1
+                       else Shard(d if d < last - 1 else last - 1))
+    return (row.redistribute(p.device_mesh, r_place),
+            col.redistribute(p.device_mesh, c_place))
+
+
+def _rank1(row, col, denom):
+    return row[..., None] * col[..., None, :] / denom[..., None]
+
+
+def _outer(row, col, denom, p):
+    """row ⊗ col / denom, placed as p on DTensors: formed on each
+    device's own block of p from the factors `_factors_placed_as` placed
+    (DTensor's broadcast rule may instead gather one factor whole, and
+    the product with it)."""
+    if not is_dtensor(p):
+        return _rank1(row, col, denom)
+    from torch.distributed.tensor import Replicate, Shard
+    whole = Shard(row.ndim - 1)          # the mean's dim: denom holds it 1
+    d_place = [Replicate() if q == whole else q for q in row.placements]
+    return on_shards(_rank1, (row, col, denom),
+                     (row.placements, col.placements, d_place),
+                     [(p.placements, p.shape)])
+
+
 def update_leaf(cfg: OptConfig, p, g, mu, *, lr, scale, c1, c2,
                 decay: bool) -> None:
     """One leaf's (or one leading slice's) AdamW step, in place: p, mu's
@@ -101,14 +162,17 @@ def update_leaf(cfg: OptConfig, p, g, mu, *, lr, scale, c1, c2,
     m = mu["m"].float() * b1 + g * (1 - b1)
     if isinstance(mu["v"], dict):  # factored second moment
         g2 = g.square() + 1e-30
-        row = mu["v"]["row"] * b2 + g2.mean(-1) * (1 - b2)
-        col = mu["v"]["col"] * b2 + g2.mean(-2) * (1 - b2)
+        row = _placed_as(mu["v"]["row"] * b2 + g2.mean(-1) * (1 - b2),
+                         mu["v"]["row"])
+        col = _placed_as(mu["v"]["col"] * b2 + g2.mean(-2) * (1 - b2),
+                         mu["v"]["col"])
         del g2
-        # rank-1 reconstruction: v ≈ row ⊗ col / mean(row)
-        denom = torch.clamp_min(row.mean(-1, keepdim=True), 1e-30)
-        v_hat = (row[..., None] * col[..., None, :] / denom[..., None]) / c2
         mu["v"]["row"].copy_(row)
         mu["v"]["col"].copy_(col)
+        row, col = _factors_placed_as(row, col, p)
+        # rank-1 reconstruction: v ≈ row ⊗ col / mean(row)
+        denom = torch.clamp_min(row.mean(-1, keepdim=True), 1e-30)
+        v_hat = _outer(row, col, denom, p) / c2
     else:
         new_v = mu["v"] * b2 + g.square() * (1 - b2)
         mu["v"].copy_(new_v)
@@ -144,8 +208,13 @@ def update(cfg: OptConfig, grads, state, params):
     c2 = 1 - cfg.b2 ** count.float()
 
     def leaf(p, g, mu):
+        parts = [p, g, mu["m"]] + (list(mu["v"].values())
+                                    if isinstance(mu["v"], dict)
+                                    else [mu["v"]])
+        n = 0 if any(_split_dim0(t) for t in parts) else p.ndim
+
         def split(t):
-            return leading_slices(t, p.ndim)
+            return leading_slices(t, n)
         v = mu["v"]
         vs = ([{"row": r, "col": c}
                for r, c in zip(split(v["row"]), split(v["col"]))]

@@ -306,7 +306,8 @@ def _port_record(arch, kind, monkeypatch):
     monkeypatch.setattr(fa, "flash_flops", flash)
     monkeypatch.setattr(ssd_scan, "ssd_flops", ssd)
     rec = dryrun.run_cell(get_config(arch).smoke(),
-                          ShapeSpec(kind, DRY_S, DRY_B, kind))
+                          ShapeSpec(kind, DRY_S, DRY_B, kind),
+                          mesh=M.make_smoke_mesh(1))
     return rec, calls
 
 
@@ -466,7 +467,7 @@ def test_dry_run_counts_the_simt_ssd_scratch(kind):
                               dtype="float32")
     tracker = _SsdSteps()
     rec = dryrun.run_cell(cfg, ShapeSpec(kind, DRY_S, DRY_B, kind),
-                          trackers=[tracker])
+                          trackers=[tracker], mesh=M.make_smoke_mesh(1))
     assert tracker.ssd, "the step traced no SSD op"
     for x_shape, b_shape, before, after in tracker.ssd:
         BC, Q, nh, hd = x_shape

@@ -23,6 +23,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.core.peaks import TPU_V5E  # noqa: E402
 from repro_torch.launch.dryrun import run_cell  # noqa: E402
+from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
 
 V5E = (TPU_V5E.peak_tflops("bf16") * 1e12, TPU_V5E.hbm_gbps * 1e9,
        TPU_V5E.ici_gbps * 1e9)
@@ -60,7 +61,8 @@ def port_records():
                            ("mamba2-780m", "decode"),
                            ("whisper-small", "train")):
             rec = run_cell(get_config(arch).smoke(),
-                           ShapeSpec(kind, 64, 2, kind))
+                           ShapeSpec(kind, 64, 2, kind),
+                           mesh=make_smoke_mesh(1))
             recs[f"{arch}_{kind}_single"] = rec
         recs["qwen3-4b_long_500k_single"] = {
             "arch": "qwen3-4b", "shape": "long_500k", "skipped": True,
