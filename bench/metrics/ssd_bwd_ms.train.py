@@ -1,0 +1,10 @@
+"""Device milliseconds a step launched under autograd's
+`SSDIntraBackward` node: the intra-chunk SSD backward."""
+
+
+def read(r):
+    t = r.trace
+    if t is None:
+        return None
+    s = t.device_s_under("SSDIntraBackward")
+    return 1e3 * s / r.units if s > 0 else None
