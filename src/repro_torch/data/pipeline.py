@@ -19,6 +19,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 
 
@@ -30,36 +31,38 @@ def synthetic_batch(cfg: ModelConfig, shape: ShapeSpec, step: int, *,
                     seed: int = 0, host_id: int = 0,
                     num_hosts: int = 1) -> dict:
     """Materialize this host's slice of the global batch for `step`."""
-    if shape.global_batch % num_hosts:
-        raise ValueError(f"global batch {shape.global_batch} does not split "
-                         f"over {num_hosts} hosts")
-    B = shape.global_batch // num_hosts
-    S = shape.seq_len
-    rng = np.random.default_rng(
-        np.random.SeedSequence([seed, step, host_id]))
-    S_txt = S - cfg.num_image_tokens if cfg.family == "vlm" else S
-    batch = {"tokens": rng.integers(
-        0, cfg.vocab_size, (B, S_txt)).astype(np.int32)}
-    if shape.kind == "train":
-        batch["labels"] = rng.integers(
-            0, cfg.vocab_size, (B, S)).astype(np.int32)
-    fdt = _float_dtype(cfg)
-    if cfg.family == "vlm":
-        batch["patch_embeds"] = (rng.standard_normal(
-            (B, cfg.num_image_tokens, cfg.d_model)) * 0.02).astype(fdt)
-    if cfg.family == "encdec":
-        batch["frame_embeds"] = (rng.standard_normal(
-            (B, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(fdt)
-    return batch
+    with spans.span(spans.SYNTHETIC_BATCH):
+        if shape.global_batch % num_hosts:
+            raise ValueError(f"global batch {shape.global_batch} does not "
+                             f"split over {num_hosts} hosts")
+        B = shape.global_batch // num_hosts
+        S = shape.seq_len
+        rng = np.random.default_rng(
+            np.random.SeedSequence([seed, step, host_id]))
+        S_txt = S - cfg.num_image_tokens if cfg.family == "vlm" else S
+        batch = {"tokens": rng.integers(
+            0, cfg.vocab_size, (B, S_txt)).astype(np.int32)}
+        if shape.kind == "train":
+            batch["labels"] = rng.integers(
+                0, cfg.vocab_size, (B, S)).astype(np.int32)
+        fdt = _float_dtype(cfg)
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = (rng.standard_normal(
+                (B, cfg.num_image_tokens, cfg.d_model)) * 0.02).astype(fdt)
+        if cfg.family == "encdec":
+            batch["frame_embeds"] = (rng.standard_normal(
+                (B, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(fdt)
+        return batch
 
 
 def to_device(cfg: ModelConfig, batch: dict, device) -> dict:
     """A `synthetic_batch` as tensors on `device`, floats in the model
     dtype: one copy a key."""
     dt = getattr(torch, cfg.dtype)
-    return {k: torch.from_numpy(v).to(
-        device, dt if v.dtype.kind == "f" else None, non_blocking=True)
-        for k, v in batch.items()}
+    with spans.span(spans.TO_DEVICE):
+        return {k: torch.from_numpy(v).to(
+            device, dt if v.dtype.kind == "f" else None, non_blocking=True)
+            for k, v in batch.items()}
 
 
 class Prefetcher:

@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.kernels import ops
 from repro_torch.kernels.sharding import (contiguous_strides, is_dtensor,
                                           on_shards)
@@ -450,22 +451,34 @@ def _save_dots():
     return create_selective_checkpoint_contexts(_save_dots_policy)
 
 
+def _recomputed(fn):
+    """fn, opening the `train.recompute` span when it runs again inside
+    the backward: autograd is then executing a graph task."""
+    def body(*args):
+        if torch._C._current_graph_task_id() == -1:
+            return fn(*args)
+        with spans.span(spans.RECOMPUTE):
+            return fn(*args)
+    return body
+
+
 def remat(cfg, fn, *args):
     """fn(*args), a layer body, under `cfg.remat` when grad mode is on:
     "nothing" keeps only the body's inputs for the backward and runs the
     body again there (`torch.utils.checkpoint`, non-reentrant, so the
-    kernels' autograd Functions run again inside the recompute), "dots"
-    also keeps its matrix products, "none" keeps everything.  With grad
-    mode off (serving) it is a plain call."""
+    kernels' autograd Functions run again inside the recompute, under
+    the `train.recompute` span), "dots" also keeps its matrix products,
+    "none" keeps everything.  With grad mode off (serving) it is a plain
+    call."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn(*args)
     from torch.utils.checkpoint import checkpoint
     if cfg.remat == "dots":
-        return checkpoint(fn, *args, use_reentrant=False,
+        return checkpoint(_recomputed(fn), *args, use_reentrant=False,
                           context_fn=_save_dots)
     if cfg.remat != "nothing":
         raise ValueError(f"remat policy {cfg.remat!r}")
-    return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(_recomputed(fn), *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.sharding import contiguous_strides
 from repro_torch.models import api as models
@@ -166,7 +167,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
     at a time: one f32 copy of zamba2-7b's `in_proj` stack is 17 GB).
     The step keeps its gradient buffers (`train_step.grads`, the
     reference's keys and stacked shapes) and its accumulator
-    (`train_step.acc`) from one call to the next.  Under a `ctx` the
+    (`train_step.acc`) from one call to the next.  Its phases open the
+    spans of `repro_torch.spans`.  Under a `ctx` the
     parameters, state and batch are DTensors on its mesh, and so are the
     gradient buffers and the accumulator, placed as the parameters.
     """
@@ -175,13 +177,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
         """Loss and aux of `batch`; its gradient written into `grads`."""
         for g in tree_leaves(grads):
             g.zero_()
-        model, leaves = grad_leaves(params, grads)
-        loss, aux = loss_fn(cfg, model, batch, ctx)
-        with sharded(ctx):              # the layers' recompute runs here
+        with spans.span(spans.FORWARD):
+            model, leaves = grad_leaves(params, grads)
+            loss, aux = loss_fn(cfg, model, batch, ctx)
+        # the layers' recompute runs here
+        with spans.span(spans.BACKWARD), sharded(ctx):
             loss.backward(inputs=leaves)
         return {k: v.detach() for k, v in aux.items()}
 
     def train_step(params, opt_state, batch):
+        with spans.span(spans.STEP):
+            return step(params, opt_state, batch)
+
+    def step(params, opt_state, batch):
         if train_step.grads is None:
             train_step.grads = tree_map(torch.zeros_like, params)
         grads = train_step.grads
@@ -203,7 +211,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
                 micro = {k: microbatch(v, i, accum_steps)
                          for k, v in batch.items()}
                 auxs.append(grads_of(params, micro, grads))
-                with torch.no_grad():
+                with spans.span(spans.ACCUMULATE), torch.no_grad():
                     for s, g in zip(tree_leaves(acc), tree_leaves(grads)):
                         for si, gi in zip(adamw.leading_slices(s),
                                           adamw.leading_slices(g)):
@@ -211,8 +219,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
             aux = {k: torch.stack([a[k] for a in auxs]).mean()
                    for k in auxs[0]}
             grads = acc
-        params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
-                                             params)
+        with spans.span(spans.OPTIMIZER):
+            params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
+                                                 params)
         aux.update(om)
         return params, opt_state, aux
 
