@@ -118,6 +118,20 @@
    former SIMT kernels' times), the int8 GEMMs their transpose's time
    alone, and the FFN GEMM's int8 and fp32 paths the SM clock and power
    draw under load, kernel and library call.
+   10b. B3's backward (`csrc/flash_bwd.cu`, which `kernels.grad`'s
+   `flash_bwd` routes bf16 at hd 64 and 128 to) at granite-3-2b's train
+   layer (B 8, S 4,096, 32 heads over 8 kv heads of 64, causal) and at
+   llama3.2-3b's (B 1, 24 over 8 heads of 128): dq, dk and dv against
+   `flash_bwd_plain` in f32 on the same bf16 inputs, each element within
+   2^-6 of it + 2^-5 of its summands' root-sum-square (P and dS are
+   rounded to bf16 before their products, and a gradient's summands
+   cancel) and the whole within 1e-2 of its RMS, a check which must
+   reject a zeroed gradient, the dq that `grad_mutants`' dq-zeroed gives
+   through autograd, a dq 2^-3 too large and a dk with one 64-key tile
+   dropped; two calls bitwise equal; one call on the kernel route and
+   three kernel launches a call; the kernels' time beside their bound
+   (2.5x the forward's: five products a causal pair), the plain
+   version's and SDPA's backward (the library's, timed only).
 
 11. Serves zamba2-7b at full width (bf16, 6.79 B parameters from a
    seeded generator on the card) through the port's entry points:
@@ -141,7 +155,8 @@
    the profiler, each of which must launch exactly 28 flash and 162 SSD
    kernels on their tensor-core variants (14 and 81 in the forward, the
    same again in remat's recompute; the autograd Functions' backwards
-   launch none).  Prints step s, tokens/s, MFU from `train_step_flops`
+   launch none of these) and call the attention backward 14 times, each
+   on the plain route (hd 112).  Prints step s, tokens/s, MFU from `train_step_flops`
    without and with the recompute, the loss of each step, peak memory,
    the idle share and the top ops.  Correctness: (a) one layer group's
    gradients (the shared block and layers 0-5, S = 512) for every leaf in
@@ -155,7 +170,10 @@
    llama3.2-3b, mamba2-780m and whisper-small at published width and 2
    layers, in f32: a train step on the card against the CPU with exact
    launch counts, then a crash after a checkpoint, a restore and a
-   resume whose last loss equals an uninterrupted run's.
+   resume whose last loss equals an uninterrupted run's; (d) one
+   granite-3-2b train step at full width (bf16, B 1, S 512), the main
+   path of its benchmark cell, which must call the attention backward 40
+   times, each on the kernel route (120 launches), with a finite loss.
 13. Runs the paper's benchmark suite on the card at the reference's own
    sizes (`repro_torch.benchmarks.run`'s modules: Fig. 1, Fig. 3,
    Table I, Table II, Fig. 5 / Table III / §V-C over the 608-job fleet,
@@ -384,6 +402,15 @@ def check(ok, msg: str):
         fail(msg)
 
 
+def card_name() -> str:
+    """The card's name and power limit, from `nvidia-smi`."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -407,14 +434,11 @@ def main() -> None:
 
     # -- 1. build and device ------------------------------------------------
     t0 = time.perf_counter()
-    _build.build(["fleet_hist", "gemm", "ssd_scan", "flash_attention"])
+    _build.build(["fleet_hist", "gemm", "ssd_scan", "flash_attention",
+                  "flash_bwd"])
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
     mesh_cells = start_mesh_cells()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     print(card)
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60).stdout.strip().splitlines()
@@ -562,8 +586,11 @@ def main() -> None:
         "ssd_intra": ssd_scan.ssd_intra_kernel,
         "flash_attention": flash_attention.flash_attention_kernel})
 
-    # -- 11. the model zoo's serving path at full width --------------------
+    # -- 10b. B3's backward at granite-3-2b's and llama3.2-3b's width -----
     records = {r["name"]: r for r in kernels}
+    records["flash_attention"]["backward"] = flash_bwd_phase(torch, dev, card)
+
+    # -- 11. the model zoo's serving path at full width --------------------
     model_launches, params, measured = model_phase(torch, dev, card, {
         name: records[name]["paths"][SERVE_MODEL]["ms"]
         for name in ("flash_attention", "ssd_intra")})
@@ -1496,6 +1523,60 @@ def close_rows(torch, name: str, got, want, mutants: dict) -> float:
     return mx
 
 
+#: the bf16 backward's whole-tensor limit: the RMS of its difference from
+#: the f32 plain version within 1e-2 of the plain version's RMS (the card
+#: read 2.3e-3 to 2.5e-3)
+BWD_REL_RMS = 1e-2
+
+
+def close_summands(torch, name: str, got, want, sigma,
+                   mutants: dict) -> tuple[float, float]:
+    """The bf16 backward's check: fails unless got has want's shape, is
+    finite, |got - want| <= 2^-6·|want| + 2^-5·σ + 2^-12·RMS(want)
+    everywhere, σ each element's summands' root-sum-square
+    (`ref.flash_bwd_scales`: the kernels round P and dS to bf16 before
+    their products, 2^-9 of each summand, which the summands'
+    cancellation does not shrink), the last term the f32 cancellation of
+    dP − D where the gradient is 0, and RMS(got - want) <=
+    `BWD_REL_RMS`·RMS(want); and unless the check rejects each of
+    `mutants`, by either part.  Prints max |diff| over σ and each
+    verdict; returns max |diff| and the relative RMS."""
+    check(tuple(got.shape) == tuple(want.shape),
+          f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    w = want.double()
+    rms = float(w.pow(2).mean().sqrt())
+    limit = BF16_RTOL * w.abs() + BF16_ROW_ATOL * sigma.double() \
+        + 2 ** -12 * rms
+
+    def verdict(t):
+        d = t.double() - w
+        return int((d.abs() > limit).sum()), \
+            float(d.pow(2).mean().sqrt()) / rms
+
+    diff = (got.double() - w).abs()
+    mx = float(diff.max())
+    n_bad, rel = verdict(got)
+    check(n_bad == 0, f"{name}: {n_bad} elements differ from the plain "
+          f"version beyond 2^-6 of it + 2^-5 of its summands' "
+          f"root-sum-square (max |diff| {mx:.3e})")
+    check(rel <= BWD_REL_RMS, f"{name}: the difference's RMS is {rel:.3e} "
+          f"of the plain version's, past {BWD_REL_RMS}")
+    caught = []
+    for what, t in mutants.items():
+        n, r = verdict(t)
+        check(n > 0 or r > BWD_REL_RMS,
+              f"{name}: the check passes a {what} output")
+        caught.append(f"{what} ({n:,d} elements, relative RMS {r:.3e})")
+    sg = sigma.double()
+    per = float((diff / sg)[sg > 2 ** -12 * rms].max())
+    print(f"{name}: max |diff| {mx:.3e}, at most {per:.3e} of an element's "
+          f"summands' root-sum-square, relative RMS {rel:.3e} (limit "
+          f"{BWD_REL_RMS}), RMS {rms:.3e}; the check rejects, of "
+          f"{w.numel():,d} elements: " + ", ".join(caught))
+    return mx, rel
+
+
 def bound(n_bytes: float, n_ops: float, kind: str) -> dict:
     """The least time the card could take: bytes over the data sheet's
     HBM rate or operations over its peak for the input type, the larger."""
@@ -2180,6 +2261,112 @@ def sdpa_kernel(torch, fn) -> str:
         if kernels:
             return kernels[0][2]
     return "not measured"
+
+
+#: phase 10b's rows: (model, B, S), causal, at the model's head widths
+FLASH_BWD_ROWS = (("granite-3-2b", 8, 4096), ("llama3.2-3b", 1, 4096))
+
+
+def flash_bwd_phase(torch, dev, card: str) -> dict:
+    """Phase 10b: B3's backward kernels at each of `FLASH_BWD_ROWS`,
+    through `grad.flash_bwd` (the route the train step takes), held
+    against `flash_bwd_plain` in f32 on the same bf16 inputs with
+    `close_summands` (mutants: a zeroed gradient; for dq, what autograd
+    gives under `grad_mutants`' dq-zeroed and the kernels' dq 2^-3 too
+    large; for dk, the kernels' dk with one 64-key tile dropped),
+    bitwise equal over two calls, timed beside the bound, the plain
+    version and SDPA's backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grad, ops, ref
+    out = {}
+    for seed, (model, B, S) in enumerate(FLASH_BWD_ROWS, start=21):
+        cfg = get_config(model)
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        q, k, v = (torch.randn(s, generator=gen, device=dev)
+                   .to(torch.bfloat16)
+                   for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+        do = torch.randn((B, S, H, hd), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        scale = hd ** -0.5
+        with torch.no_grad():
+            o = ops.flash(q, k, v, causal=True)
+        routes = grad.flash_bwd_routes()
+        launches = dict(fa.flash_attention_bwd_kernel.launches_by)
+        got = grad.flash_bwd(q, k, v, o, do, causal=True, scale=scale)
+        again = grad.flash_bwd(q, k, v, o, do, causal=True, scale=scale)
+        torch.cuda.synchronize()
+        now = grad.flash_bwd_routes()
+        calls = {r: now[r] - routes[r] for r in now}
+        check(calls == {"kernel": 2, "plain": 0},
+              f"flash backward at {model} width took the routes {calls}, "
+              f"not the kernels twice")
+        now = fa.flash_attention_bwd_kernel.launches_by
+        launched = {n: now[n] - launches[n] for n in now}
+        check(launched == {"lse_d": 2, "dkdv": 2, "dq": 2},
+              f"flash backward at {model} width launched {launched}, not "
+              f"each kernel twice")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash backward at {model} width: two calls differ")
+        del again
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        with grad_mutants(torch)["dq-zeroed"]:
+            ops.flash(*leaves, causal=True).backward(do)
+        mutant_dq = leaves[0].grad
+        del leaves
+        f32 = [t.float() for t in (q, k, v, o, do)]
+        plain = grad.flash_bwd_plain(*f32, causal=True, scale=scale)
+        sigmas = ref.flash_bwd_scales(*f32, causal=True, scale=scale)
+        del f32
+        tile_dropped = got[1].clone()
+        tile_dropped[:, S // 2:S // 2 + 64] = 0
+        extra = {"dq": {"grad_mutants dq-zeroed": mutant_dq,
+                        "2^-3 too large": got[0] * (1 + 2 ** -3)},
+                 "dk": {"one 64-key tile dropped": tile_dropped}}
+        err, rel = {}, {}
+        for name, g, w, sg in zip(("dq", "dk", "dv"), got, plain, sigmas):
+            mutants = {"zeroed": torch.zeros_like(w), **extra.get(name, {})}
+            err[name], rel[name] = close_summands(
+                torch, f"flash backward {name} at {model} width", g, w, sg,
+                mutants)
+        del got, plain, sigmas, mutant_dq, tile_dropped, extra
+        torch.cuda.empty_cache()
+        ms = event_ms(torch, lambda: fa.flash_attention_bwd_kernel(
+            q, k, v, o, do, causal=True, scale=scale), REPS)
+        plain_ms = event_ms(torch, lambda: grad.flash_bwd_plain(
+            q, k, v, o, do, causal=True, scale=scale), 1)
+        torch.cuda.empty_cache()
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        lib_ms = event_ms(torch, lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), REPS)
+        del qt, kt, vt, ot, dot
+        # five products, 2·hd a causal pair each; q, o, dO, k, v read once
+        # and dq, dk, dv written once
+        n_ops = 10 * B * H * hd * (S * (S + 1) // 2)
+        n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+        b = bound(n_bytes, n_ops, "bf16")
+        print(f"flash backward {model} (B {B}, S {S}, H {H}, KV {KV}, hd "
+              f"{hd}), causal, bf16 [kernel]: max |diff| dq {err['dq']:.3e}"
+              f" dk {err['dk']:.3e} dv {err['dv']:.3e}; kernels {ms:.4f} ms "
+              f"({b['bound_ms'] / ms:.1%} of bound, {ms / lib_ms:.2f}x "
+              f"SDPA's backward), plain {plain_ms:.4f} ms, library (SDPA "
+              f"backward) {lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}, {n_ops / 1e9:.1f} GFLOP, "
+              f"{n_bytes / 1e6:.1f} MB); {card}")
+        out[model] = {"source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+                      "route": "kernel", "max_abs_err": err, "rel_rms": rel,
+                      "ms": ms, "plain_ms": plain_ms, **b,
+                      "library_ms": lib_ms}
+        del q, k, v, o, do
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2919,7 +3106,8 @@ def train_phase(torch, dev, card: str, params, poller) -> tuple:
     (one warm-up step, 3 timed, one under the profiler), on phase 11's
     parameters, with its gradient checks (a) and (b); then (c), three
     families at published width, 2 layers, each an f32 train step
-    against the CPU and a crash restart through checkpoints.  `poller`
+    against the CPU and a crash restart through checkpoints, and (d),
+    granite-3-2b's train step on the backward kernels.  `poller`
     (a `CounterPoller`) polls the card over the timed steps, phase 15's
     train window.  Returns each model kernel's launches a full-width
     train step, the timed steps' mean s and the steps' peak device memory
@@ -2931,6 +3119,7 @@ def train_phase(torch, dev, card: str, params, poller) -> tuple:
 
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.flops.accounting import train_step_flops
+    from repro_torch.kernels import grad
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.ssd_scan import ssd_intra_kernel
     from repro_torch.optim import adamw
@@ -2975,7 +3164,8 @@ def train_phase(torch, dev, card: str, params, poller) -> tuple:
     window = {}
 
     def hook(step):
-        counts.append((dict(fa.launches_by), dict(sk.launches_by)))
+        counts.append((dict(fa.launches_by), dict(sk.launches_by),
+                       grad.flash_bwd_routes()))
         host.append(snapshot())
         if step == 1:                   # phase 15's window: the timed steps
             torch.cuda.synchronize()
@@ -3001,19 +3191,24 @@ def train_phase(torch, dev, card: str, params, poller) -> tuple:
             gc.callbacks.remove(on_gc)
         torch.cuda.synchronize()
         prof.__exit__(None, None, None)
-    counts.append((dict(fa.launches_by), dict(sk.launches_by)))
+    counts.append((dict(fa.launches_by), dict(sk.launches_by),
+                   grad.flash_bwd_routes()))
     host.append(snapshot())
     peak = torch.cuda.max_memory_allocated(dev)
     n_groups = len(range(0, cfg.num_layers, cfg.attn_every))
     want = (2 * n_groups, 2 * cfg.num_layers)
     per_step = []
     for i in range(n_steps):
-        (f0, s0), (f1, s1) = counts[i], counts[i + 1]
+        (f0, s0, b0), (f1, s1, b1) = counts[i], counts[i + 1]
         step = ({k: f1[k] - f0[k] for k in f1}, {k: s1[k] - s0[k] for k in s1})
         check(step == ({"wgmma_bf16": want[0], "simt": 0},
                        {"wgmma_bf16": want[1], "simt": 0}),
               f"train step {i}: launches {step}, expected {want[0]} flash "
               f"and {want[1]} SSD on wgmma_bf16 (forward and recompute)")
+        bwd = {k: b1[k] - b0[k] for k in b1}
+        check(bwd == {"kernel": 0, "plain": n_groups},
+              f"train step {i}: attention backward calls {bwd}, expected "
+              f"{n_groups} on the plain route (hd {cfg.head_dim})")
         per_step.append(step)
     losses = [m["loss"] for m in out["metrics"]]
     check(out["final_step"] == n_steps and len(losses) == n_steps
@@ -3039,7 +3234,9 @@ def train_phase(torch, dev, card: str, params, poller) -> tuple:
           + f"; peak device memory {peak / 2**30:.3f} GiB [{card}]")
     print(f"train launches a step: flash {want[0]}, SSD {want[1]} "
           f"wgmma_bf16 (forward {n_groups} and {cfg.num_layers}, the same "
-          f"again in the recompute; the backwards launch none)")
+          f"again in the recompute; the backwards launch none of these); "
+          f"attention backward {n_groups} calls, all on the plain route "
+          f"(hd {cfg.head_dim})")
     deltas = [[b - a for a, b in zip(host[i], host[i + 1])]
               for i in range(n_steps)]
     print("train steps, host side, each step (hook to hook): allocator "
@@ -3097,6 +3294,10 @@ def train_phase(torch, dev, card: str, params, poller) -> tuple:
     for model, S in TRAIN_FAMILY_MODELS:
         train_family_check(torch, dev, model, S)
     marks["families"] = time.perf_counter()
+
+    # -- (d) granite-3-2b's train step: the backward kernels' main path ----
+    granite_step_check(torch, dev, card)
+    marks["granite step"] = time.perf_counter()
     split, t = [], t_phase
     for name, mark in marks.items():
         split.append(f"{name} {mark - t:.2f}")
@@ -3112,6 +3313,45 @@ def train_phase(torch, dev, card: str, params, poller) -> tuple:
     return {"flash_attention": per_step[1][0]["wgmma_bf16"],
             "ssd_intra": per_step[1][1]["wgmma_bf16"]}, \
         {"step_s": s, "peak": peak - others}, window
+
+
+def granite_step_check(torch, dev, card: str) -> None:
+    """Phase 12 (d): one granite-3-2b train step at full width (bf16, B 1,
+    S 512), the main path of its benchmark cell: the attention backward
+    called once a layer, every call on the kernel route (three launches
+    each), and a finite loss."""
+    from repro_torch.configs import ShapeSpec, get_config, make_inputs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grad
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    cfg = get_config("granite-3-2b")
+    params = init_params(cfg, device=dev)
+    state = adamw.init(adamw.OptConfig(), params)
+    step = steps.make_train_step(cfg, adamw.OptConfig())
+    batch = make_inputs(cfg, ShapeSpec("train", 512, 1, "train"), device=dev)
+    routes = grad.flash_bwd_routes()
+    launches = fa.flash_attention_bwd_kernel.launches
+    t0 = time.perf_counter()
+    _, _, aux = step(params, state, batch)
+    loss = float(aux["loss"])
+    s = time.perf_counter() - t0
+    now = grad.flash_bwd_routes()
+    calls = {r: now[r] - routes[r] for r in now}
+    n = fa.flash_attention_bwd_kernel.launches - launches
+    check(calls == {"kernel": cfg.num_layers, "plain": 0}
+          and n == 3 * cfg.num_layers,
+          f"{cfg.name}'s train step: attention backward calls {calls} and "
+          f"{n} kernel launches, expected {cfg.num_layers} on the kernel "
+          f"route and {3 * cfg.num_layers} launches")
+    check(math.isfinite(loss), f"{cfg.name}'s train step: loss {loss}")
+    print(f"train: {cfg.name} at full width, B 1, S 512, bf16: one step "
+          f"(its first, with the warm-up) {s:.3f} s, loss {loss:.4f}; "
+          f"attention backward {calls['kernel']} calls on the kernel route "
+          f"and {calls['plain']} plain, {n} kernel launches [{card}]")
+    del params, state, step, batch, aux
+    torch.cuda.empty_cache()
 
 
 def train_family_check(torch, dev, model: str, S: int) -> None:

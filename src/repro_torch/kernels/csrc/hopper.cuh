@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels of
 // the kernel API (gemm.cu's bf16 and int8 paths, flash_attention.cu's
-// bf16 path): raw PTX for mbarriers, TMA tensor loads, wgmma shared-memory
-// descriptors and products, register rebalancing and cp.async, the tile
-// loads and widening reads of the register-tiled SIMT kernels, plus a
-// host function that encodes a CUtensorMap through the driver entry point
-// (nothing here links libcuda).
+// bf16 path, flash_bwd.cu): raw PTX for mbarriers, TMA tensor and bulk
+// loads, wgmma shared-memory descriptors and products, register
+// rebalancing and cp.async, the tile loads and widening reads of the
+// register-tiled SIMT kernels, plus a host function that encodes a
+// CUtensorMap through the driver entry point (nothing here links
+// libcuda).
 //
 // Shared-memory tiles are TMA boxes whose innermost dimension is 128
 // bytes (64 bf16 or 128 int8 values), stored with the 128-byte swizzle,
@@ -99,6 +100,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// A plain bulk copy of `bytes` (a multiple of 16; src and dst 16-byte
+// aligned) from global into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(smem_u32(bar)) : "memory");
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile at `p`:

@@ -14,6 +14,15 @@ inputs require grad, with grad mode on, raises: the launch is invisible
 to autograd, and `kernels.ops.flash` carries the gradient through
 `kernels.grad`.
 
+The backward (`kernels.grad.flash_bwd`) routes by what its inputs show
+(`bwd_route`): card tensors in bf16 with hd 64 or 128 and v shaped like
+k launch `csrc/flash_bwd.cu`'s three kernels (the log-sum-exp and D,
+then dK and dV, then dQ; no atomics, so repeatable bitwise) through the
+op `torch.ops.repro_torch.flash_attention_bwd`, whose fake allocates
+dq, dk, dv and the kernels' f32 scratch and whose FLOP formula counts
+the tiles they run (`flash_bwd_flops`); everything else takes the plain
+backward, `grad.flash_bwd_plain`.
+
 The launch is the op `torch.ops.repro_torch.flash_attention`, so a
 trace on fake CUDA tensors (`launch.hlo_analysis.analyze_step`, the dry
 run) passes through it: its fake version (also its meta kernel)
@@ -208,3 +217,147 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #: were last set to 0
 flash_attention_kernel.launches = 0
 flash_attention_kernel.launches_by = {"wgmma_bf16": 0, "simt": 0}
+
+
+# ---------------------------------------------------------------------------
+# the backward: csrc/flash_bwd.cu
+# ---------------------------------------------------------------------------
+#: head dims of the backward's kernels
+_BWD_HD = (64, 128)
+#: rows of a backward block (queries of the log-sum-exp and dq kernels,
+#: keys of the dkdv kernel) and of the other side's tile
+_BWD_ROWS, _BWD_TILE = 128, 64
+
+
+def bwd_route(device_type: str, dtype: torch.dtype, q_shape, k_shape,
+              v_shape) -> str:
+    """Which backward an attention call takes, from what its inputs show:
+    "kernel" (`csrc/flash_bwd.cu`) for card tensors (CUDA, or meta ones
+    that stand for them in a shape-only trace) in bf16 with hd 64 or 128
+    and v shaped like k; "plain" (`grad.flash_bwd_plain`) for everything
+    else: CPU tensors, f32 and f64, other head dims, a narrower V."""
+    hd = q_shape[-1]
+    return "kernel" if (device_type in ("cuda", "meta")
+                        and dtype == torch.bfloat16 and hd in _BWD_HD
+                        and k_shape[-1] == hd
+                        and tuple(v_shape) == tuple(k_shape)) else "plain"
+
+
+def bwd_stats_rows(Sq: int) -> int:
+    """Query rows of each (batch, head) of the backward's f32 scratch of
+    log-sum-exps and D: Sq rounded up to a whole tile."""
+    return -(-Sq // _BWD_TILE) * _BWD_TILE
+
+
+def _bwd_kernel():
+    from repro_torch.kernels import _build
+    fn = _build.load("flash_bwd").flash_attention_bwd_bf16
+    if fn.argtypes is None:
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 9 + [i32] * 6 + [ctypes.c_float, i32, i32, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           o: torch.Tensor, do: torch.Tensor, causal: bool,
+                           scale: float) -> tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv, stats): the three launches of `csrc/flash_bwd.cu` on
+    validated contiguous bf16 CUDA inputs, as an op; no count.  `stats`
+    is the kernels' f32 scratch (2, B, H, `bwd_stats_rows(Sq)`): each
+    query row's log-sum-exp and D = rowsum(dO ∘ O)."""
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("the backward's TMA loads take 16-byte-aligned q, "
+                         "k, v, o and dO")
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((2, B, H, bwd_stats_rows(Sq)), dtype=torch.float32,
+                        device=q.device)
+    err = _bwd_kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), B, Sq,
+        Sk, H, KV, hd, scale, int(causal), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    return dq, dk, dv, stats
+
+
+@flash_attention_bwd_op.register_fake
+def _(q, k, v, o, do, causal, scale):
+    B, Sq, H, _ = q.shape
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            q.new_empty((2, B, H, bwd_stats_rows(Sq)), dtype=torch.float32))
+
+
+def flash_bwd_flops(q_shape, k_shape, causal: bool) -> int:
+    """FLOPs the backward's kernels execute: 2·hd a (query, key) pair of
+    a whole tile they compute, for each product and head.  The
+    log-sum-exp (1 product) and dq (3: S, dP, dS·K) kernels run 128
+    query rows by 64-key tiles, under `causal` up to the tile that holds
+    the block's last row's diagonal; the dkdv kernel (4: Sᵀ, dPᵀ, Pᵀ·dO,
+    dSᵀ·Q) 128 keys by 64-row query tiles, under `causal` from the tile
+    that holds the block's first key's diagonal on."""
+    B, Sq, H, hd = q_shape
+    Sk = k_shape[1]
+    rows, tile = _BWD_ROWS, _BWD_TILE
+    n_q = math.ceil(Sq / tile)
+    by_rows = sum(math.ceil((min(Sk, q0 + rows) if causal else Sk) / tile)
+                  for q0 in range(0, Sq, rows))
+    by_keys = sum(n_q - (min(k0 // tile, n_q) if causal else 0)
+                  for k0 in range(0, Sk, rows))
+    return 2 * hd * rows * tile * 4 * B * H * (by_rows + by_keys)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flops(q_shape, k_shape, v_shape, o_shape, do_shape, causal, scale,
+               *args, **kwargs) -> int:
+    return flash_bwd_flops(q_shape, k_shape, causal)
+
+
+def flash_attention_bwd_kernel(q, k, v, o, do, *, causal: bool,
+                               scale: float):
+    """(dq, dk, dv) of `flash_attention_kernel`'s attention through the
+    backward's kernels, for inputs `bwd_route` sends there: q, o, do (B,
+    Sq, H, hd) and k, v (B, Sk, KV, hd) in bf16, hd 64 or 128, on the card
+    (or meta tensors, which take the op's fake version).  Gradients in
+    bf16; two calls on the same inputs give bitwise equal ones.  Counts
+    the three launches of a call on the card (a fake or meta call
+    launches nothing and counts nothing)."""
+    if bwd_route(q.device.type, q.dtype, q.shape, k.shape,
+                 v.shape) != "kernel":
+        raise ValueError(f"the backward's kernels take card bf16 q, k, v "
+                         f"with hd in {_BWD_HD} and v shaped like k: "
+                         f"{q.device.type} {q.dtype}, q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    if (k.shape[0] != B or KV < 1 or H % KV or Sk < 1 or Sq < 1
+            or o.shape != q.shape or do.shape != q.shape):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, o "
+                         f"{tuple(o.shape)} and dO {tuple(do.shape)} are "
+                         f"not attention's (B, S, heads, hd) alike")
+    if any(t.dtype != q.dtype for t in (k, v, o, do)):
+        raise TypeError("the backward takes q, k, v, o and dO of one dtype")
+    if (math.ceil(Sq / _BWD_ROWS) > 65535
+            or math.ceil(Sk / _BWD_ROWS) > 65535):
+        raise ValueError("the backward takes Sq, Sk <= 65535 x 128")
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    dq, dk, dv, _ = flash_attention_bwd_op(q, k, v, o, do, causal,
+                                           float(scale))
+    if not sharding.launched(dq):
+        return dq, dk, dv
+    flash_attention_bwd_kernel.launches += 3
+    for name in flash_attention_bwd_kernel.launches_by:
+        flash_attention_bwd_kernel.launches_by[name] += 1
+    return dq, dk, dv
+
+
+#: kernel launches, and those of each of the three kernels (one each a
+#: call), since the counts were last set to 0
+flash_attention_bwd_kernel.launches = 0
+flash_attention_bwd_kernel.launches_by = {"lse_d": 0, "dkdv": 0, "dq": 0}

@@ -5,21 +5,30 @@ see, so a model that called them directly would train with no gradient
 through attention or the SSD's intra-chunk term.  `FlashAttention` and
 `SSDIntra` wrap them in `torch.autograd.Function`s: the forward is the
 kernel's wrapper (the kernel on the card, its plain version on the CPU)
-and the backward is the explicit vector-Jacobian product, in plain
-PyTorch.  The reference has no `custom_vjp` (its Pallas kernels have no
-backward), so there is no TPU backward kernel to port.
+and the backward is the explicit vector-Jacobian product.  The reference
+has no `custom_vjp` (its Pallas kernels have no backward), so there is no
+TPU backward kernel to port.
+
+`flash_bwd` routes by what its inputs show (`flash_attention.bwd_route`):
+card tensors in bf16 with hd 64 or 128 and v shaped like k take the
+hand-written Hopper kernels (`csrc/flash_bwd.cu`, through the op
+`repro_torch::flash_attention_bwd`), which round P and dS to bf16 before
+the products that take them and keep every sum in f32; everything else
+(the CPU, f32 and f64, other head dims, a narrower V) takes
+`flash_bwd_plain`, in plain PyTorch.  `ssd_intra_bwd` is plain PyTorch.
 
 `kernels.ops.flash` and `kernels.ops.ssd` route through these only when
 grad mode is on and an input requires grad; the kernels' wrappers raise
 on CUDA inputs that would need a gradient, so nothing bypasses them.
-The backwards compute in f32 (f64 for f64 inputs) and return gradients
-in the inputs' dtypes.  `flash_bwd` and `ssd_intra_bwd` are looked up
-when the backward runs, so a check can swap in a broken one.
+The plain backwards compute in f32 (f64 for f64 inputs) and return
+gradients in the inputs' dtypes.  `flash_bwd` and `ssd_intra_bwd` are
+looked up when the backward runs, so a check can swap in a broken one.
 
 On DTensors the forwards run through the ops' sharding rules, which
 split the work only over independent (batch, chunk, head) slices, and
 each backward runs on the local shards placed as the forward's output
-(`_on_shards`), so a device's backward is the plain one on its slices.
+(`_on_shards`), so a device's backward is the unsharded one on its
+slices.
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import sharding, ssd_scan
 from repro_torch.kernels.ref import compute_dtype
 
-#: query rows a block of the flash backward: its f32 scores are
+#: query rows a block of the plain flash backward: its f32 scores are
 #: (B, H, block, Sk)
 FLASH_BWD_BLOCK = 512
 #: elements of one (chunks, nh, Q, Q) f32 block of the SSD backward
@@ -37,7 +46,29 @@ SSD_BWD_ELEMENTS = 1 << 25
 
 
 def flash_bwd(q, k, v, o, do, *, causal: bool, scale: float):
-    """(dq, dk, dv) of softmax attention, blocked over query rows.
+    """(dq, dk, dv) of softmax attention: the backward's kernels where
+    `flash_attention.bwd_route` sends the inputs, else `flash_bwd_plain`.
+    Each route keeps its own count (`flash_bwd_routes`)."""
+    if fa.bwd_route(q.device.type, q.dtype, q.shape, k.shape,
+                    v.shape) == "kernel":
+        return fa.flash_attention_bwd_kernel(q, k, v, o, do, causal=causal,
+                                             scale=scale)
+    return flash_bwd_plain(q, k, v, o, do, causal=causal, scale=scale)
+
+
+def flash_bwd_routes() -> dict:
+    """Backward calls of each route since their counts were last set to
+    0: "kernel" from the kernels' own count (each call launches one
+    `dq` kernel, `flash_attention_bwd_kernel.launches_by`), "plain" from
+    `flash_bwd_plain.calls`.  Calls on fake or meta tensors count in
+    neither."""
+    return {"kernel": fa.flash_attention_bwd_kernel.launches_by["dq"],
+            "plain": flash_bwd_plain.calls}
+
+
+def flash_bwd_plain(q, k, v, o, do, *, causal: bool, scale: float):
+    """(dq, dk, dv) of softmax attention, blocked over query rows, in plain
+    PyTorch.
 
     q/o/do: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); GQA groups of H / KV
     query heads share a kv head, whose dk and dv sum over the group.
@@ -45,6 +76,7 @@ def flash_bwd(q, k, v, o, do, *, causal: bool, scale: float):
     softmax(S) over the whole key row, D = rowsum(dO ∘ O) with the
     forward's own O, dS = P ∘ (dO·vᵀ − D), dq = dS·k·scale, dk += dSᵀ·q
     ·scale, dv += Pᵀ·dO.  Memory is O(block × Sk) a (batch, head).
+    Counts each call on real tensors in `flash_bwd_plain.calls`.
     """
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
@@ -73,7 +105,13 @@ def flash_bwd(q, k, v, o, do, *, causal: bool, scale: float):
                         ).reshape(B, n, H, hd).to(q.dtype)
         dk += torch.einsum("bkgqj,bqkgd->bjkd", ds, qb) * scale
         dv += torch.einsum("bkgqj,bqkgd->bjkd", p, dob)
+    if not (q.is_meta or sharding.is_fake(q)):
+        flash_bwd_plain.calls += 1
     return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+#: calls on real tensors since the count was last set to 0
+flash_bwd_plain.calls = 0
 
 
 def ssd_intra_bwd(x, dt, dacs, b, c, dy):

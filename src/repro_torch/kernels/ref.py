@@ -69,3 +69,46 @@ def ref_ssd_intra(x, dt, dacs, b, c) -> torch.Tensor:
     m = cb * L * dt.to(ct).transpose(1, 2)[:, :, None, :]
     y = torch.einsum("zhqk,zkhd->zqhd", m, x.to(ct))
     return y.to(x.dtype)
+
+
+def flash_bwd_scales(q, k, v, o, do, *, causal: bool, scale: float,
+                     block: int = 512):
+    """The root-sum-square of each attention gradient element's summands,
+    in f32 (f64 for f64 inputs): for dq_id, sqrt(Σ_j (dS_ij·k_jd·scale)²);
+    for dk_jd, sqrt(Σ_(i, g) (dS_ij·q_id·scale)²); for dv_jd,
+    sqrt(Σ_(i, g) (P_ij·dO_id)²), with P and dS as `grad.flash_bwd_plain`
+    forms them, blocked over `block` query rows.
+
+    A backward that rounds P or dS to bf16 before a product moves each
+    summand by at most 2^-9 of itself, in no common direction, so the
+    element by ~2^-9 of this root-sum-square: where the summands cancel
+    (Σ_j dS_ij = 0 for every row), that is far more than 2^-9 of the
+    element."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    ct = compute_dtype(q.dtype)
+    kf, vf = k.to(ct), v.to(ct)
+    sq = torch.empty(q.shape, dtype=ct, device=q.device)
+    sk = torch.zeros(k.shape, dtype=ct, device=q.device)
+    sv = torch.zeros(v.shape, dtype=ct, device=q.device)
+    keys = torch.arange(Sk, device=q.device)
+    for i0 in range(0, Sq, block):
+        i1 = min(i0 + block, Sq)
+        n = i1 - i0
+        qb, ob, dob = (t[:, i0:i1].to(ct).reshape(B, n, KV, G, hd)
+                       for t in (q, o, do))
+        s = torch.einsum("bqkgd,bjkd->bkgqj", qb, kf) * scale
+        if causal:
+            rows = torch.arange(i0, i1, device=q.device)
+            s = s.masked_fill(rows[:, None] < keys[None, :], float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        del s
+        d = (dob * ob).sum(-1).permute(0, 2, 3, 1)
+        ds2 = (p * (torch.einsum("bqkgd,bjkd->bkgqj", dob, vf)
+                    - d[..., None])).square()
+        sq[:, i0:i1] = torch.einsum("bkgqj,bjkd->bqkgd", ds2, kf.square()
+                                    ).sqrt().reshape(B, n, H, hd) * scale
+        sk += torch.einsum("bkgqj,bqkgd->bjkd", ds2, qb.square())
+        sv += torch.einsum("bkgqj,bqkgd->bjkd", p.square(), dob.square())
+    return sq, sk.sqrt() * scale, sv.sqrt()

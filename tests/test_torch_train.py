@@ -141,6 +141,155 @@ def test_flash_backward_gives_a_narrower_v_its_own_width():
     _assert_f64(got, want, "mla")
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_scales_are_the_summands_rms(causal):
+    """`ref.flash_bwd_scales`, blocked, against each gradient element's
+    summands written out whole, in f64 (GQA, Sq > Sk)."""
+    B, Sq, Sk, H, KV, hd = 2, 23, 17, 6, 2, 8
+    G, scale = H // KV, 0.3
+    rng = np.random.default_rng(5)
+    q, o, do = (torch.tensor(rng.standard_normal((B, Sq, H, hd)), dtype=F64)
+                for _ in range(3))
+    k, v = (torch.tensor(rng.standard_normal((B, Sk, KV, hd)), dtype=F64)
+            for _ in range(2))
+    got = ref.flash_bwd_scales(q, k, v, o, do, causal=causal, scale=scale,
+                               block=8)
+    qg, og, dog = (t.reshape(B, Sq, KV, G, hd) for t in (q, o, do))
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qg, k) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(Sq, Sk, dtype=torch.bool).triu(1),
+                          float("-inf"))
+    p = torch.softmax(s, -1)
+    d = (dog * og).sum(-1).permute(0, 2, 3, 1)
+    ds = p * (torch.einsum("bqkgd,bjkd->bkgqj", dog, v) - d[..., None])
+    # every summand, then the root-sum-square over the summed index
+    tq = ds[..., None] * k.permute(0, 2, 1, 3)[:, :, None, None] * scale
+    tk = ds[..., None] * qg.permute(0, 2, 3, 1, 4)[..., None, :] * scale
+    tv = p[..., None] * dog.permute(0, 2, 3, 1, 4)[..., None, :]
+    want = (tq.square().sum(4).sqrt().permute(0, 3, 1, 2, 4)
+            .reshape(B, Sq, H, hd),
+            tk.square().sum((2, 3)).sqrt().permute(0, 2, 1, 3),
+            tv.square().sum((2, 3)).sqrt().permute(0, 2, 1, 3))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12)
+
+
+# the backward's route: (device, dtype, q/k hd, v hd) -> route
+FLASH_BWD_ROUTES = {
+    "cuda-bf16-hd64": ("cuda", torch.bfloat16, 64, 64, "kernel"),
+    "cuda-bf16-hd128": ("cuda", torch.bfloat16, 128, 128, "kernel"),
+    "meta-bf16-hd64": ("meta", torch.bfloat16, 64, 64, "kernel"),
+    "cpu-bf16-hd64": ("cpu", torch.bfloat16, 64, 64, "plain"),
+    "cuda-f32-hd64": ("cuda", torch.float32, 64, 64, "plain"),
+    "cuda-f64-hd128": ("cuda", torch.float64, 128, 128, "plain"),
+    "cuda-bf16-hd112": ("cuda", torch.bfloat16, 112, 112, "plain"),
+    "cuda-bf16-hd96": ("cuda", torch.bfloat16, 96, 96, "plain"),
+    "cuda-bf16-hd192": ("cuda", torch.bfloat16, 192, 192, "plain"),
+    "cuda-bf16-narrower-v": ("cuda", torch.bfloat16, 128, 64, "plain"),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_BWD_ROUTES))
+def test_flash_bwd_route_rule(case):
+    from repro_torch.kernels.flash_attention import bwd_route
+    device, dtype, hd, hd_v, want = FLASH_BWD_ROUTES[case]
+    q, k, v = (2, 300, 8, hd), (2, 300, 2, hd), (2, 300, 2, hd_v)
+    assert bwd_route(device, dtype, q, k, v) == want
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_op_fake_gives_the_gradients_shapes(causal):
+    """On fake CUDA tensors the op allocates what the launch allocates:
+    dq, dk, dv like q, k, v and the f32 scratch of log-sum-exps and D;
+    nothing launches and nothing counts."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import flash_attention as fa
+    counts = grad.flash_bwd_routes()
+    launches = fa.flash_attention_bwd_kernel.launches
+    with FakeTensorMode():
+        q = torch.empty((2, 200, 8, 64), dtype=torch.bfloat16, device="cuda")
+        k = torch.empty((2, 130, 2, 64), dtype=torch.bfloat16, device="cuda")
+        dq, dk, dv = grad.flash_bwd(q, k, k, q, q, causal=causal, scale=0.125)
+        *_, stats = fa.flash_attention_bwd_op(q, k, k, q, q, causal, 0.125)
+    for g, like in ((dq, q), (dk, k), (dv, k)):
+        assert (g.shape, g.dtype, g.device.type) == (like.shape, like.dtype,
+                                                     "cuda")
+    assert (stats.shape, stats.dtype) == ((2, 2, 8, 256), torch.float32)
+    assert grad.flash_bwd_routes() == counts
+    assert fa.flash_attention_bwd_kernel.launches == launches
+
+
+# (q shape, Sk, causal) -> the backward kernels' executed FLOPs: 2·hd ·
+# 128 · 64 a (block, tile) pair and product, 8 products over the tiles
+def _bwd_closed_form(B, Sq, Sk, H, hd, causal):
+    unit = 2 * hd * 128 * 64 * 4 * B * H
+    if causal:                       # Sq == Sk, a multiple of 128: n blocks
+        n = Sq // 128
+        return unit * 2 * n * (n + 1)
+    return unit * (-(-Sq // 128) * -(-Sk // 64) + -(-Sk // 128) * -(-Sq // 64))
+
+
+FLASH_BWD_FLOPS = {
+    "granite-layer": (8, 4096, 4096, 32, 64, True),
+    "llama-layer": (1, 4096, 4096, 24, 128, True),
+    "one-block": (1, 128, 128, 1, 64, True),
+    "full-ragged": (2, 200, 330, 4, 64, False),
+    "full-sq-gt-sk": (1, 1000, 96, 8, 128, False),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_BWD_FLOPS))
+def test_flash_bwd_flops_closed_form(case):
+    """The formula in closed form, and through `FlopCounterMode` on meta
+    tensors (the formula is registered on the op)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Sk, H, hd, causal = FLASH_BWD_FLOPS[case]
+    want = _bwd_closed_form(B, Sq, Sk, H, hd, causal)
+    assert fa.flash_bwd_flops((B, Sq, H, hd), (B, Sk, 2, hd), causal) == want
+    q = torch.empty((B, Sq, H, hd), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((B, Sk, 2, hd), dtype=torch.bfloat16, device="meta")
+    with FlopCounterMode(display=False) as counter:
+        fa.flash_attention_bwd_op(q, k, k, q, q, causal, hd ** -0.5)
+    assert counter.get_total_flops() == want
+
+
+def test_flash_bwd_flops_granite_is_the_eight_passes():
+    """At granite's layer the tiles' FLOPs are the 8 passes over the
+    causal pairs, and the diagonal tiles' masked halves, 3.1 % more."""
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, hd = 8, 4096, 32, 64
+    pairs = B * H * S * (S + 1) // 2
+    got = fa.flash_bwd_flops((B, S, H, hd), (B, S, 8, hd), True)
+    assert 1.0 < got / (8 * 2 * hd * pairs) < 1.04
+
+
+def test_flash_backward_looks_up_flash_bwd_when_it_runs(monkeypatch):
+    """`FlashAttention.backward` calls `grad.flash_bwd` as it is when the
+    backward runs (the fault mutants patch it there), and on the CPU the
+    router takes the plain version, bf16 at hd 64 included."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.tensor(rng.standard_normal(s), dtype=torch.float32)
+               .to(torch.bfloat16).requires_grad_()
+               for s in ((1, 20, 4, 64), (1, 20, 2, 64), (1, 20, 2, 64)))
+    out = ops.flash(q, k, v, causal=True)
+    seen = []
+    router = grad.flash_bwd
+
+    def spy(*a, **kw):
+        seen.append(a[0].shape)
+        return router(*a, **kw)
+    monkeypatch.setattr(grad, "flash_bwd", spy)
+    counts = grad.flash_bwd_routes()
+    out.float().sum().backward()
+    assert seen == [q.shape]
+    assert grad.flash_bwd_routes() == {"kernel": counts["kernel"],
+                                       "plain": counts["plain"] + 1}
+    assert q.grad.dtype == torch.bfloat16 and q.grad.shape == q.shape
+
+
 SSD_GRAD_CASES = {
     # BC, Q, nh, hd, g, ds
     "g-lt-nh": (3, 16, 4, 8, 2, 6),
@@ -899,6 +1048,118 @@ def test_card_flash_function_matches_plain_autograd(cuda, shape, dtype):
                   (q, k, v), cot)
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), **_card_tol(dtype))
+
+
+#: the backward kernels' shapes (B, Sq, Sk, H, KV, hd, causal): hd 64 and
+#: 128, GQA groups of 4, causal and full, Sq < Sk and Sq > Sk, ragged
+#: lengths, and one granite-3-2b layer's slice (B 1 of its 8)
+CARD_FLASH_BWD = {
+    "g4-causal-hd64": (2, 256, 256, 8, 2, 64, True),
+    "g4-full-hd128": (2, 256, 256, 8, 2, 128, False),
+    "ragged-200-hd64": (1, 200, 200, 8, 2, 64, True),
+    "ragged-1000-hd128": (1, 1000, 1000, 8, 2, 128, True),
+    "sq-lt-sk-full-hd64": (1, 200, 330, 4, 1, 64, False),
+    "sq-lt-sk-causal-hd128": (1, 130, 1000, 4, 1, 128, True),
+    "sq-gt-sk-causal-hd128": (1, 330, 200, 8, 2, 128, True),
+    "sq-gt-sk-full-hd64": (1, 1000, 200, 8, 2, 64, False),
+    "granite-layer-slice": (1, 4096, 4096, 32, 8, 64, True),
+}
+
+
+def _rel_rms(got, want) -> float:
+    g, w = got.float(), want.float()
+    return float((g - w).pow(2).mean().sqrt() / w.pow(2).mean().sqrt())
+
+
+def _bf16_grad_close(got, want, sigma, what):
+    """The kernels' bf16 gradient against `flash_bwd_plain`'s in f32 on
+    the same bf16 inputs.  The kernels round P and dS to bf16 before the
+    products that take them (2^-9 of each summand, in no common
+    direction) and the gradient once (2^-9 of it): each element within
+    2^-6·|w| + 2^-5·σ + 2^-12·RMS(w), σ its summands' root-sum-square
+    (`ref.flash_bwd_scales`; the card read at most 1.8e-2·σ, and a plain
+    version rounding P and dS as the kernels do gave the same values to
+    ~1e-4 where the f32 one was farthest), the last term the f32
+    cancellation of dP − D where the gradient is exactly 0 (a causal
+    first row); and the whole within 1e-2 of RMS(w) (the card read
+    2.3e-3 to 2.5e-3).  A zeroed gradient fails both."""
+    g, w = got.float(), want.float()
+    rms = float(w.pow(2).mean().sqrt())
+    over = (g - w).abs() - (2 ** -6 * w.abs() + 2 ** -5 * sigma
+                            + 2 ** -12 * rms)
+    bad = int((over > 0).sum())
+    rel = _rel_rms(got, want)
+    at = tuple(int(i) for i in torch.unravel_index(over.argmax(), w.shape))
+    assert bad == 0 and rel < 1e-2, \
+        f"{what}: {bad} elements beyond the limit, relative RMS {rel:.3e}; " \
+        f"worst at {at}: got {float(g[at]):.4e}, want {float(w[at]):.4e}, " \
+        f"summands' root-sum-square {float(sigma[at]):.4e}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CARD_FLASH_BWD))
+def test_card_flash_bwd_kernels_match_plain(cuda, case):
+    """The backward's kernels (`grad.flash_bwd` routes bf16 at hd 64/128
+    there) against `flash_bwd_plain` in f32, element by element, and
+    against autograd of `ref.ref_attention` in f32, as a whole, both on
+    the same bf16 inputs; two calls bitwise equal; one count on the
+    kernel route."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Sk, H, KV, hd, causal = CARD_FLASH_BWD[case]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(torch.bfloat16)
+               for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    do = torch.randn((B, Sq, H, hd), generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    scale = hd ** -0.5
+    with torch.no_grad():
+        o = fa.flash_attention_kernel(q, k, v, causal=causal)
+    counts = grad.flash_bwd_routes()
+    launches = fa.flash_attention_bwd_kernel.launches
+    got = grad.flash_bwd(q, k, v, o, do, causal=causal, scale=scale)
+    assert grad.flash_bwd_routes() == {"kernel": counts["kernel"] + 1,
+                                       "plain": counts["plain"]}
+    assert fa.flash_attention_bwd_kernel.launches == launches + 3
+    again = grad.flash_bwd(q, k, v, o, do, causal=causal, scale=scale)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    plain = grad.flash_bwd_plain(*(t.float() for t in (q, k, v, o, do)),
+                                 causal=causal, scale=scale)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    auto = _grads(lambda: ref.ref_attention(*leaves, causal=causal), leaves,
+                  do.float())
+    sigmas = ref.flash_bwd_scales(*(t.float() for t in (q, k, v, o, do)),
+                                  causal=causal, scale=scale)
+    for name, g, p, a, sg in zip(("dq", "dk", "dv"), got, plain, auto,
+                                 sigmas):
+        assert g.dtype == torch.bfloat16 and g.shape == p.shape
+        _bf16_grad_close(g, p, sg, f"{case} {name} vs flash_bwd_plain")
+        # autograd of the f32 attention forms D from its own f32 output,
+        # not the forward's bf16 O, which moves dq_i by scale·δD_i·(P·K)_i
+        # on the first causal rows beyond the element limit: the whole
+        # within 1e-2 of its RMS (the card read 2.5e-3 to 2.6e-3)
+        assert _rel_rms(g, a) < 1e-2, f"{case} {name} vs autograd"
+    with pytest.raises(AssertionError):
+        _bf16_grad_close(torch.zeros_like(got[0]), plain[0], sigmas[0],
+                         "dq zeroed")
+    assert _rel_rms(torch.zeros_like(got[0]), auto[0]) >= 1e-2
+
+
+@pytest.mark.gpu
+def test_card_granite_step_takes_the_backward_kernels(cuda):
+    """A granite-3-2b train step at full width (B 1, S 512) calls the
+    backward once a layer, every call on the kernel route."""
+    from repro_torch.configs.base import ShapeSpec as Shape
+    cfg = get_config("granite-3-2b")
+    params = init_params(cfg, device=cuda)
+    state = adamw.init(adamw.OptConfig(), params)
+    step = steps.make_train_step(cfg, adamw.OptConfig())
+    batch = make_inputs(cfg, Shape("t", 512, 1, "train"), device=cuda)
+    before = grad.flash_bwd_routes()
+    _, _, aux = step(params, state, batch)
+    assert torch.isfinite(aux["loss"])
+    after = grad.flash_bwd_routes()
+    assert {r: after[r] - before[r] for r in after} == {
+        "kernel": cfg.num_layers, "plain": 0} == {"kernel": 40, "plain": 0}
 
 
 @pytest.mark.gpu
