@@ -6,6 +6,9 @@ in its own file under `bench/`, found by the name `BENCHMARK.json` or a
 mix gives:
 
   configs/<config>.json     sizes: the source's keys, and "as_run"
+  reference/families/<family>.py
+                            the plain reference of the family "as_run"
+                            names: its leaves, units and FLOPs a token
   traffic/<mix>.json        the mix: its "kind" names a driver
   drivers/<kind>.py         KEYS, the mix keys it reads, and
                             run(cell, cfg, seed, seconds, trace, dev, t0):
@@ -98,12 +101,14 @@ def driver(root: Path, kind: str):
 
 
 def model_config(cell: Cell):
-    """The program's ModelConfig built from the file's sizes; refused
-    where the program's registry holds other sizes under the name."""
+    """The program's ModelConfig built from the file's sizes (a JSON
+    list as a tuple); refused where the program's registry holds other
+    sizes under the name."""
     from dataclasses import asdict
 
     from repro_torch.configs.base import ModelConfig, get_config
-    cfg = ModelConfig(**cell.sizes)
+    cfg = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                         for k, v in cell.sizes.items()})
     reg = get_config(cfg.name)
     if asdict(reg) != asdict(cfg):
         diff = {k: (v, asdict(reg)[k]) for k, v in asdict(cfg).items()

@@ -1,25 +1,37 @@
-"""The plain reference of the benchmark's two families, from the sizes in
-a configuration file's "as_run" group.
+"""The plain reference of the benchmark's models, from the sizes in a
+configuration file's "as_run" group.
 
 A model is its parameter layout (`layout`: the path, shape, dtype and
 initial law of each tensor, which the harness draws from the seed and
 hands to both sides) and a sequence of units (`units`): embedding, then
 blocks that each map the residual stream (B, S, d) to itself, then the
-head.  `forward` runs them in f32; `train.py` differentiates them one
-unit at a time.  Families:
+head.  The embedding and the head are common to every model; what lies
+between is its family's, in `families/<family>.py`, found by the name
+the "as_run" group gives.  A family file defines
 
-  dense   a GQA transformer: norm, attention, norm, gated MLP, a layer
-  hybrid  Mamba2 layers, one attention + MLP block (its weights shared)
-          applied before every `attn_every`-th layer
+  leaves(c)                 the blocks' `Leaf`s, in a fixed order
+  units(c)                  the blocks' `Unit`s, in the order they run
+  flops_per_token(c, seq)   the blocks' matrix-product FLOPs a token of
+                            a sequence of `seq` (`frozen/flops.py` adds
+                            the head's)
+
+`forward` runs them in f32; `train.py` differentiates them one unit at a
+time.
 """
 from __future__ import annotations
 
+import functools
+import importlib.util
 import math
 from dataclasses import dataclass
+from pathlib import Path
 
 import torch
 
 from reference import ops
+
+#: the family files, `<family>.py` each
+FAMILIES = Path(__file__).resolve().parent / "families"
 
 
 @dataclass(frozen=True)
@@ -29,57 +41,56 @@ class Leaf:
     dtype: str           # "bfloat16" or "float32"
     init: str            # normal | ones | zeros | a_log | dt_bias
     std: float = 0.0
+    stacked: bool = False    # its leading dim stacks the layers: compared
+                             # a layer at a time
 
 
-def _mat(path, shape, dt, scale=1.0):
-    return Leaf(path, shape, dt, "normal", scale / math.sqrt(shape[-2]))
+def mat(path, shape, dt, scale=1.0, stacked=False):
+    return Leaf(path, shape, dt, "normal", scale / math.sqrt(shape[-2]),
+                stacked)
 
 
-def _attn_block(prefix, c, dt, L=None):
-    d, H, KV, hd, ff = (c["d_model"], c["num_heads"], c["num_kv_heads"],
-                        c["head_dim"], c["d_ff"])
-    lead = () if L is None else (L,)
-    return [
-        _mat(prefix + ("attn", "wq"), lead + (d, H * hd), dt),
-        _mat(prefix + ("attn", "wk"), lead + (d, KV * hd), dt),
-        _mat(prefix + ("attn", "wv"), lead + (d, KV * hd), dt),
-        _mat(prefix + ("attn", "wo"), lead + (H * hd, d), dt),
-        _mat(prefix + ("mlp", "wi"), lead + (d, ff), dt),
-        _mat(prefix + ("mlp", "wo"), lead + (ff, d), dt),
-        _mat(prefix + ("mlp", "wg"), lead + (d, ff), dt),
-        Leaf(prefix + ("norm1",), lead + (d,), dt, "ones"),
-        Leaf(prefix + ("norm2",), lead + (d,), dt, "ones"),
-    ]
+@dataclass
+class Unit:
+    """One residual block: `fn(c, ps, x, e, prec)` maps the stream x to
+    itself; ps holds the f32 view of each of `sources` (a (path, layer)
+    pair: `sub(params at path, layer)`), e is the embedding's output
+    (B, S, d), which a block may read beside x."""
+    fn: object
+    sources: tuple
+
+
+@functools.cache
+def _module(path: Path):
+    spec = importlib.util.spec_from_file_location(
+        f"reference_family_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def family(c):
+    """The module of `families/<family>.py` for sizes c."""
+    path = FAMILIES / f"{c['family']}.py"
+    if not path.is_file():
+        raise ValueError(f"no reference for family {c['family']!r}: "
+                         f"{path} is missing")
+    return _module(path)
 
 
 def layout(c) -> list:
     """Every parameter tensor of the model, in a fixed order."""
-    dt, d, V, L = c["dtype"], c["d_model"], c["vocab_size"], c["num_layers"]
+    dt, d, V = c["dtype"], c["d_model"], c["vocab_size"]
     out = [Leaf(("embed",), (V, d), dt, "normal", 0.02),
            Leaf(("final_norm",), (d,), dt, "ones")]
-    if c["family"] == "dense":
-        out += _attn_block(("dense_layers",), c, dt, L)
-    elif c["family"] == "hybrid":
-        di = c["ssm_expand"] * d
-        g, ds = c["ssm_ngroups"], c["ssm_state"]
-        nh, W = di // c["ssm_head_dim"], c["conv_width"]
-        conv = di + 2 * g * ds
-        m = ("layers", "mixer")
-        out += [Leaf(("layers", "norm"), (L, d), dt, "ones"),
-                _mat(m + ("in_proj",), (L, d, 2 * di + 2 * g * ds + nh), dt),
-                _mat(m + ("conv_w",), (L, W, conv), dt, 0.5),
-                Leaf(m + ("conv_b",), (L, conv), dt, "zeros"),
-                Leaf(m + ("A_log",), (L, nh), "float32", "a_log"),
-                Leaf(m + ("D",), (L, nh), "float32", "ones"),
-                Leaf(m + ("dt_bias",), (L, nh), "float32", "dt_bias"),
-                Leaf(m + ("out_norm",), (L, di), dt, "ones"),
-                _mat(m + ("out_proj",), (L, di, d), dt)]
-        out += _attn_block(("shared_attn",), c, dt)
-    else:
-        raise ValueError(f"no reference for family {c['family']!r}")
+    out += family(c).leaves(c)
     if not c.get("tie_embeddings", False):
-        out.append(_mat(("lm_head",), (d, V), dt))
+        out.append(mat(("lm_head",), (d, V), dt))
     return out
+
+
+def units(c) -> list:
+    return family(c).units(c)
 
 
 def get(tree, path):
@@ -95,49 +106,27 @@ def sub(tree, i=None):
     return (tree if i is None else tree[i]).float()
 
 
-@dataclass
-class Unit:
-    """One residual block: `fn(c, p, x, prec)` with p = `sub(params at
-    path, layer)`; `path`/`layer` name where its parameters live."""
-    fn: object
-    path: tuple
-    layer: int | None
-
-
-def _dense_block(c, p, x, prec):
-    x = x + ops.gqa(c, p["attn"], ops.rms_norm(x, p["norm1"], c["norm_eps"]),
-                    prec)
-    return x + ops.gated_mlp(p["mlp"], ops.rms_norm(x, p["norm2"],
-                                                    c["norm_eps"]), prec)
-
-
-def _mamba_block(c, p, x, prec):
-    return x + ops.mamba(c, p["mixer"], ops.rms_norm(x, p["norm"],
-                                                    c["norm_eps"]), prec)
-
-
-def units(c) -> list:
-    L = c["num_layers"]
-    if c["family"] == "dense":
-        return [Unit(_dense_block, ("dense_layers",), i) for i in range(L)]
-    out = []
-    for s in range(0, L, c["attn_every"]):
-        out.append(Unit(_dense_block, ("shared_attn",), None))
-        out += [Unit(_mamba_block, ("layers",), i)
-                for i in range(s, min(s + c["attn_every"], L))]
-    return out
+def views(params, u: Unit) -> tuple:
+    """The f32 view of each of u's sources."""
+    return tuple(sub(get(params, path), layer) for path, layer in u.sources)
 
 
 def head_weight(c, params):
     return params["embed"].T if c.get("tie_embeddings") else params["lm_head"]
 
 
+def stream(c, params, tokens, prec):
+    """The residual stream (B, S, d) after the last unit."""
+    x = e = params["embed"][tokens.long()].float()
+    for u in units(c):
+        x = u.fn(c, views(params, u), x, e, prec)
+    return x
+
+
 @torch.no_grad()
 def last_logits(c, params, tokens, prec):
     """f32 logits (B, V) at the last position of tokens (B, S)."""
-    x = params["embed"][tokens.long()].float()
-    for u in units(c):
-        x = u.fn(c, sub(get(params, u.path), u.layer), x, prec)
+    x = stream(c, params, tokens, prec)
     h = ops.rms_norm(x[:, -1], params["final_norm"].float(), c["norm_eps"])
     return prec.mm(h, head_weight(c, params).float())
 
@@ -145,9 +134,7 @@ def last_logits(c, params, tokens, prec):
 @torch.no_grad()
 def all_logits(c, params, tokens, prec, rows: int = 1024):
     """f32 logits (B, S, V) at every position, the head in row blocks."""
-    x = params["embed"][tokens.long()].float()
-    for u in units(c):
-        x = u.fn(c, sub(get(params, u.path), u.layer), x, prec)
+    x = stream(c, params, tokens, prec)
     h = ops.rms_norm(x, params["final_norm"].float(), c["norm_eps"])
     w = head_weight(c, params).float()
     B, S, d = h.shape

@@ -17,10 +17,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from reference import models, ops
-from reference.models import get, sub
+from reference.models import get, views
 
-#: leaves whose leading dim stacks the layers: compared a layer at a time
-STACKED = ("layers", "dense_layers")
 #: rows of the output head computed at a time
 HEAD_ROWS = 4096
 
@@ -38,7 +36,7 @@ def pieces(leaf, t):
     """(name, tensor) of each compared piece of a leaf: a layer of a
     stacked leaf, the whole tensor otherwise."""
     name = "/".join(leaf.path)
-    if leaf.path[0] in STACKED:
+    if leaf.stacked:
         return [(f"{name}[{i}]", t[i]) for i in range(t.shape[0])]
     return [(name, t)]
 
@@ -84,10 +82,10 @@ class RefTrainer:
         us = models.units(c)
         xs = []
         with torch.no_grad():
-            x = params["embed"][tokens].float()
+            x = e = params["embed"][tokens].float()
             for u in us:
                 xs.append(x)
-                x = u.fn(c, sub(get(params, u.path), u.layer), x, prec)
+                x = u.fn(c, views(params, u), x, e, prec)
         # the head: the mean over the positions that have a next token
         # (half of them under the "half_batch" fault)
         rows, pos = B, S - 1
@@ -110,14 +108,19 @@ class RefTrainer:
             grads[("lm_head",)] += w.grad
         gx = xf.grad
         del xf, fn, w, h
+        # the units that read the embedding's output e accumulate its
+        # gradient in e.grad, which joins the stream's at the embedding
+        e = e.detach().requires_grad_()
         for i in reversed(range(len(us))):
             u, xi = us[i], xs[i].requires_grad_()
             xs[i] = None
-            tree = get(params, u.path)
-            p = _leaves_requiring_grad(sub(tree, u.layer))
-            u.fn(c, p, xi, prec).backward(gx)
-            _add_grads(grads, u.path, u.layer, p)
+            ps = tuple(_leaves_requiring_grad(p) for p in views(params, u))
+            u.fn(c, ps, xi, e, prec).backward(gx)
+            for (path, layer), p in zip(u.sources, ps):
+                _add_grads(grads, path, layer, p)
             gx = xi.grad
+        if e.grad is not None:
+            gx = gx + e.grad
         grads[("embed",)].index_add_(0, tokens.reshape(-1),
                                      gx.reshape(-1, gx.shape[-1]))
         return loss.detach(), grads
@@ -167,13 +170,15 @@ def _leaves_requiring_grad(tree):
     return tree.detach().requires_grad_()
 
 
-def _add_grads(grads, path, layer, tree, prefix=()):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            _add_grads(grads, path, layer, v, prefix + (k,))
-            continue
-        g = grads[path + prefix + (k,)]
-        (g if layer is None else g[layer]).add_(v.grad)
+def _add_grads(grads, path, layer, tree):
+    """Add the .grad of each leaf of tree, the view of layer `layer` of
+    the parameters at path, to its gradient."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _add_grads(grads, path + (k,), layer, v)
+        return
+    g = grads[path]
+    (g if layer is None else g[layer]).add_(tree.grad)
 
 
 def piece_norms(layout, tensor_of) -> dict:

@@ -19,13 +19,16 @@ SIZE_KEYS = ("name", "family", "num_layers", "d_model", "num_heads",
 
 def smoke_sizes(arch: str, dtype: str = "float32") -> dict:
     """The program's smoke reduction of `arch`, registered in its
-    registry, as a configuration file's "as_run" group."""
-    from dataclasses import replace
+    registry, as a configuration file's "as_run" group: the fields of
+    SIZE_KEYS, and every other field that differs from its default."""
+    from dataclasses import fields, replace
 
-    from repro_torch.configs.base import get_config, register
+    from repro_torch.configs.base import ModelConfig, get_config, register
     cfg = replace(get_config(arch).smoke(), dtype=dtype)
     register(cfg)
-    return {k: v for k, v in asdict(cfg).items() if k in SIZE_KEYS}
+    default = {f.name: f.default for f in fields(ModelConfig)}
+    return {k: v for k, v in asdict(cfg).items()
+            if k in SIZE_KEYS or v != default[k]}
 
 
 TRAIN_MIX = {"kind": "train", "seq_len": 16, "batch": 2,
