@@ -2133,7 +2133,8 @@ def ssd_launcher(torch, ssd_scan, inputs):
 #: first, then its "paths" (keyed by model, " f32" for the f32 call)
 FLASH_CALLS = (("llama3.2-3b", "bfloat16"), ("phi-3-vision-4.2b", "bfloat16"),
                ("zamba2-7b", "bfloat16"), ("nemotron-4-340b", "bfloat16"),
-               ("phi-3-vision-4.2b", "float32"), ("zamba2-7b", "float32"))
+               ("phi-3-vision-4.2b", "float32"), ("zamba2-7b", "float32"),
+               ("zamba2-7b-instruct", "bfloat16"))
 
 
 def flash_path(torch, dev):
@@ -2141,41 +2142,50 @@ def flash_path(torch, dev):
     S = 4,096, causal, in bf16 at llama3.2-3b (24 query heads over 8 kv
     heads of 128), phi-3-vision-4.2b (32 heads of 96), zamba2-7b's
     shared attention (32 heads of 112) and nemotron-4-340b (96 over 8
-    heads of 192), all on the tensor-core kernel, and in f32 at
-    phi-3-vision-4.2b and zamba2-7b width on the SIMT kernel.  The closure
-    holds each against the plain version with `close_rows` and times
-    kernel, plain version and `scaled_dot_product_attention`."""
+    heads of 192), all on the tensor-core kernel, in f32 at
+    phi-3-vision-4.2b and zamba2-7b width on the SIMT kernel, and in bf16
+    at zamba2-7b-instruct's shared blocks as its train cell runs them
+    (B = 2, 32 heads of 224, scale (224 / 2)^-1/2) on the SIMT kernel,
+    which serves bf16 at head dims the tensor-core kernel lacks.  The
+    closure holds each against the plain version with `close_rows` and
+    times kernel, plain version and `scaled_dot_product_attention`."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     calls = []
     for seed, (model, dtype_name) in enumerate(FLASH_CALLS, start=2):
         cfg = get_config(model)
-        B, S, H, KV, hd = (1, 4096, cfg.num_heads, cfg.num_kv_heads,
-                           cfg.head_dim)
+        # the zamba2 family's blocks read concat(x, e) and scale by
+        # (hd / 2)^-1/2; its train cell runs two sequences a step
+        zamba2 = cfg.family == "zamba2"
+        B, S, H, KV, hd = (2 if zamba2 else 1, 4096, cfg.num_heads,
+                           cfg.num_kv_heads, cfg.head_dim)
+        scale = (hd / 2 if zamba2 else hd) ** -0.5
         dtype = getattr(torch, dtype_name)
         gen = torch.Generator(device=dev).manual_seed(seed)
         q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
                    for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
         t0 = time.perf_counter()
-        out = ops.flash(q, k, v, causal=True)
+        out = ops.flash(q, k, v, causal=True, scale=scale)
         torch.cuda.synchronize()
         print(f"flash path: ops.flash {cfg.name} ({B}, {S}, H {H}, KV {KV}, "
-              f"hd {hd}), causal, {dtype}: "
+              f"hd {hd}, scale {scale:.6f}), causal, {dtype}: "
               f"{(time.perf_counter() - t0) * 1e3:.2f} ms wall")
-        calls.append((cfg, q, k, v, out))
+        calls.append((cfg, q, k, v, out, scale))
 
     def run() -> dict:
         head, *rest = (flash_record(torch, *call) for call in calls)
         return {**head, "paths": {
             cfg.name + ("" if q.dtype == torch.bfloat16 else " f32"): rec
             for (cfg, q, *_), rec in zip(calls[1:], rest)}}
-    # every bf16 call takes the tensor-core kernel, the f32 ones the SIMT
-    run.launches_by = {"wgmma_bf16": 4, "simt": 2}
+    # the bf16 calls at the tensor-core head dims take the tensor-core
+    # kernel; the f32 ones and bf16 at hd 224 the SIMT
+    run.launches_by = {"wgmma_bf16": 4, "simt": 3}
     return run
 
 
-def flash_record(torch, cfg, q, k, v, out) -> dict:
-    """One full-width causal flash call against its plain version with
+def flash_record(torch, cfg, q, k, v, out, scale) -> dict:
+    """One full-width causal flash call at its softmax scale against its
+    plain version with
     `close_rows` (mutants: zeroed, the last rows' diagonal key tile
     dropped (32 keys on the tensor-core kernel, the SIMT kernel's own
     64-key tile there) and, past hd 64, q and k zeroed past column 64: a
@@ -2188,13 +2198,13 @@ def flash_record(torch, cfg, q, k, v, out) -> dict:
     from repro_torch.kernels.ref import ref_attention
     B, S, H, hd = q.shape
     path = fa.variant(q.dtype, hd)
-    want = ref_attention(q, k, v, causal=True)
+    want = ref_attention(q, k, v, causal=True, scale=scale)
     # a kernel that drops the last rows' diagonal key tile: they see only
     # the keys before it
     kt = fa._SIMT_KEYS if path == "simt" else 32
     dropped = want.clone()
     dropped[:, -kt:] = ref_attention(q[:, -kt:], k[:, :-kt], v[:, :-kt],
-                                     causal=False)
+                                     causal=False, scale=scale)
     mutants = {"zeroed": torch.zeros_like(want),
                "diagonal-tile-dropped": dropped}
     if hd > 64:
@@ -2202,7 +2212,8 @@ def flash_record(torch, cfg, q, k, v, out) -> dict:
         q64[..., 64:] = 0
         k64[..., 64:] = 0
         mutants["second-box-dropped"] = ref_attention(q64, k64, v,
-                                                      causal=True)
+                                                      causal=True,
+                                                      scale=scale)
         del q64, k64
     err = close_rows(torch, f"flash at {cfg.name} width, {q.dtype}", out,
                      want, mutants)
@@ -2211,14 +2222,14 @@ def flash_record(torch, cfg, q, k, v, out) -> dict:
               1e-3)
     del want, dropped, mutants
     torch.cuda.empty_cache()             # nemotron's scores: 6.4 GB a copy
-    ms = event_ms(torch, lambda: fa._launch(q, k, v, True, hd ** -0.5), REPS)
-    plain_ms = event_ms(torch, lambda: ref_attention(q, k, v, causal=True),
-                        REPS)
+    ms = event_ms(torch, lambda: fa._launch(q, k, v, True, scale), REPS)
+    plain_ms = event_ms(torch, lambda: ref_attention(q, k, v, causal=True,
+                                                     scale=scale), REPS)
     torch.cuda.empty_cache()
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
+                                              scale=scale, enable_gqa=True)
     lib_ms = event_ms(torch, sdpa, REPS)
     lib_kernel = sdpa_kernel(torch, sdpa)
     del qt, kt, vt

@@ -43,7 +43,9 @@ class ModelConfig:
     moe      -- fine-grained MoE w/ shared experts (deepseek-moe)
     mla_moe  -- MLA attention + MoE + MTP (deepseek-v3)
     ssm      -- Mamba2 / SSD, attention-free
-    hybrid   -- Mamba2 backbone + periodic shared attention (zamba2)
+    hybrid   -- Mamba2 backbone + periodic shared attention (zamba2-7b)
+    zamba2   -- Mamba2 backbone + shared transformer blocks invoked before
+                the layers `shared_block_layers` names (Zamba2-7B-Instruct)
     encdec   -- encoder-decoder (whisper; conv frontend stubbed)
     vlm      -- dense backbone + patch-embedding stub frontend (phi-3-vision)
     """
@@ -82,6 +84,12 @@ class ModelConfig:
     ssm_chunk: int = 256
     conv_width: int = 4
     attn_every: int = 0  # hybrid: shared attention block every N layers
+    ssm_grouped_norm: bool = False  # the gated RMSNorm in ssm_ngroups groups
+
+    # --- zamba2: shared blocks invoked before the layers named ---
+    shared_block_layers: tuple = ()  # invocation i runs before layer [i]
+    num_shared_blocks: int = 0       # invocation i uses block i mod this
+    adapter_rank: int = 0            # invocation i's own LoRA on gate_up
 
     # --- enc-dec (whisper) ---
     encoder_layers: int = 0
@@ -92,7 +100,7 @@ class ModelConfig:
 
     # --- misc ---
     qk_norm: bool = False
-    activation: str = "silu"  # silu | gelu | relu2
+    activation: str = "silu"  # silu | gelu | relu2 | geglu
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
@@ -152,6 +160,13 @@ class ModelConfig:
             kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
         if self.attn_every:
             kw.update(attn_every=2, num_layers=4)
+        if self.shared_block_layers:
+            # the block reads concat(x, e): heads of 2·d / H, as published;
+            # two invocations a block, so a block's gradient sums over
+            # several
+            kw.update(num_layers=5, shared_block_layers=(1, 2, 3, 4),
+                      adapter_rank=8,
+                      head_dim=2 * kw["d_model"] // kw["num_heads"])
         if self.encoder_layers:
             kw.update(encoder_layers=2, encoder_seq=16)
         if self.num_image_tokens:
@@ -187,7 +202,7 @@ def _load_all() -> None:
     from repro_torch.configs import (  # noqa: F401
         deepseek_moe_16b, deepseek_v3_671b, qwen3_4b, nemotron_4_340b,
         granite_3_2b, llama3_2_3b, whisper_small, phi_3_vision_4_2b,
-        mamba2_780m, zamba2_7b,
+        mamba2_780m, zamba2_7b, zamba2_7b_instruct,
     )
 
 

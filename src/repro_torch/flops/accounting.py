@@ -71,11 +71,13 @@ class Breakdown:
 # ---------------------------------------------------------------------------
 # per-layer forward FLOPs, per token (context length ctx for attention)
 # ---------------------------------------------------------------------------
-def _gqa_flops(cfg: ModelConfig, ctx_len: float, causal: bool) -> dict:
+def _gqa_flops(cfg: ModelConfig, ctx_len: float, causal: bool,
+               d_in: int = 0) -> dict:
+    """q, k, v from inputs d_in wide (d_model when 0), o to d_model."""
     H, KV, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
     eff = ctx_len * (0.5 if causal else 1.0)
     return {
-        "attn_proj": 2 * d * (H + 2 * KV) * hd + 2 * H * hd * d,
+        "attn_proj": 2 * (d_in or d) * (H + 2 * KV) * hd + 2 * H * hd * d,
         "attn_score": 2 * 2 * eff * H * hd,
     }
 
@@ -108,8 +110,19 @@ def _mla_decode_flops(cfg: ModelConfig, ctx_len: float) -> dict:
 
 def _mlp_flops(cfg: ModelConfig, d_ff: int, d_in: int = 0) -> float:
     d = d_in or cfg.d_model
-    n_mats = 3 if cfg.activation == "silu" else 2
+    n_mats = 3 if cfg.activation in ("silu", "geglu") else 2
     return 2 * d * d_ff * n_mats
+
+
+def _zamba2_invocation_flops(cfg: ModelConfig, ctx_len: float,
+                             causal: bool) -> dict:
+    """One invocation of a zamba2 shared block a token: attention from
+    the 2·d-wide concat, the MLP, its adapter and its linear."""
+    d, r = cfg.d_model, cfg.adapter_rank
+    return {**_gqa_flops(cfg, ctx_len, causal, d_in=2 * d),
+            "mlp": _mlp_flops(cfg, cfg.d_ff),
+            "adapter": 2 * d * r + 2 * r * 2 * cfg.d_ff,
+            "shared_linear": 2 * d * d}
 
 
 def _moe_flops(cfg: ModelConfig, variant: str, executed: bool) -> dict:
@@ -223,6 +236,12 @@ def forward_flops(cfg: ModelConfig, shape: ShapeSpec, *,
             n_attn = len(range(0, L, cfg.attn_every))
             add_layer(_gqa_flops(cfg, S, True), n_attn)
             add_layer({"mlp": _mlp_flops(cfg, cfg.d_ff)}, n_attn)
+    elif cfg.family == "zamba2":
+        mxu, vpu = _mamba_flops(cfg)
+        add_layer(mxu, L)
+        add_layer(vpu, L, unit="vpu")
+        add_layer(_zamba2_invocation_flops(cfg, S, True),
+                  len(cfg.shared_block_layers))
     elif cfg.family == "encdec":
         Ne = B * cfg.encoder_seq
         add_layer(_gqa_flops(cfg, cfg.encoder_seq, False), cfg.encoder_layers,
@@ -310,6 +329,8 @@ def decode_step_flops(cfg: ModelConfig, shape: ShapeSpec, *,
                             * cfg.encoder_seq),
              "cross_score": 2 * 2 * cfg.encoder_seq * H * hd}, L)
         add({"mlp": _mlp_flops(cfg, cfg.d_ff)}, L)
+    else:
+        raise ValueError(f"no decode FLOPs for the {cfg.family} family")
 
     bd.add("lm_head", 2 * cfg.d_model * cfg.vocab_size * B)
     bd.add("norms", 12 * cfg.d_model * B * max(L, 1), "vpu")
@@ -334,7 +355,7 @@ def param_count_analytic(cfg: ModelConfig, active_only: bool = False) -> float:
     """Matmul parameter count (embeddings excluded from the 6ND convention)."""
     d, L = cfg.d_model, cfg.num_layers
     n = 0.0
-    per_mlp = (3 if cfg.activation == "silu" else 2)
+    per_mlp = (3 if cfg.activation in ("silu", "geglu") else 2)
 
     def attn_params():
         if cfg.family == "mla_moe":
@@ -368,6 +389,15 @@ def param_count_analytic(cfg: ModelConfig, active_only: bool = False) -> float:
     elif cfg.family == "hybrid":
         n += L * mamba_params()
         n += attn_params() + per_mlp * d * cfg.d_ff  # ONE shared block
+    elif cfg.family == "zamba2":
+        n += L * mamba_params()
+        # the shared blocks (q, k, v from 2·d), each invocation's adapter
+        # and linear
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        n += cfg.num_shared_blocks * (2 * d * (H + 2 * KV) * hd + H * hd * d
+                                   + per_mlp * d * cfg.d_ff)
+        n += len(cfg.shared_block_layers) * (
+            d * cfg.adapter_rank + cfg.adapter_rank * 2 * cfg.d_ff + d * d)
     elif cfg.family == "encdec":
         n += cfg.encoder_layers * (attn_params() + per_mlp * d * cfg.d_ff)
         n += L * (attn_params() * 2 + per_mlp * d * cfg.d_ff)

@@ -20,7 +20,7 @@ from repro_torch.models.common import ShardCtx, tree_leaves
 def _mod(cfg: ModelConfig):
     if cfg.family in ("dense", "moe", "mla_moe", "vlm"):
         return transformer
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid", "zamba2"):
         return ssm_models
     if cfg.family == "encdec":
         return encdec

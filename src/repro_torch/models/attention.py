@@ -69,12 +69,14 @@ def _write_sharded(cache, cache_index, new):
 # ===========================================================================
 # GQA
 # ===========================================================================
-def gqa_init(gen, cfg: ModelConfig, dtype):
+def gqa_init(gen, cfg: ModelConfig, dtype, d_in: Optional[int] = None):
+    """q, k, v from inputs `d_in` wide (d_model by default), o to d_model."""
     H, KV, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    d_in = d_in or d
     p = {
-        "wq": dense_init(gen, (d, H * hd), dtype),
-        "wk": dense_init(gen, (d, KV * hd), dtype),
-        "wv": dense_init(gen, (d, KV * hd), dtype),
+        "wq": dense_init(gen, (d_in, H * hd), dtype),
+        "wk": dense_init(gen, (d_in, KV * hd), dtype),
+        "wv": dense_init(gen, (d_in, KV * hd), dtype),
         "wo": dense_init(gen, (H * hd, d), dtype),
     }
     if cfg.qk_norm:
@@ -114,11 +116,12 @@ def _qkv(cfg: ModelConfig, p, x, positions, ctx):
 
 
 def gqa_apply(cfg: ModelConfig, p, x, *, positions, causal: bool,
-              ctx: Optional[ShardCtx] = None):
-    """Full-sequence self-attention."""
+              ctx: Optional[ShardCtx] = None, scale: Optional[float] = None):
+    """Full-sequence self-attention of x, as wide as wq's rows; scores
+    scaled by `scale`, hd^-1/2 when None."""
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions, ctx)
-    o = flash_attention(q, k, v, causal=causal, ctx=ctx)
+    o = flash_attention(q, k, v, causal=causal, scale=scale, ctx=ctx)
     out = o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"]
     return constrain(out, ctx, "dp", "tp", None)
 

@@ -269,14 +269,17 @@ def activation_fn(name: str):
         return F.silu
     if name == "gelu":
         return _gelu
+    if name == "geglu":  # Zamba2's gated GELU: the exact, erf form
+        return F.gelu
     if name == "relu2":  # squared ReLU (nemotron)
         return _relu2
     raise ValueError(name)
 
 
 def gated(name: str) -> bool:
-    """Gated (SwiGLU-style) MLPs use wi+wg; relu2/gelu archs use a plain wi."""
-    return name == "silu"
+    """Gated MLPs: SwiGLU's wi+wg, and geglu's one gate_up product split
+    in halves (gate, up); relu2/gelu archs use a plain wi."""
+    return name in ("silu", "geglu")
 
 
 # ---------------------------------------------------------------------------

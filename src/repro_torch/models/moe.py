@@ -24,6 +24,10 @@ from repro_torch.models.common import (ShardCtx, activation_fn, constrain,
 # ---------------------------------------------------------------------------
 def mlp_init(gen, cfg: ModelConfig, dtype, d_ff: Optional[int] = None):
     d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.activation == "geglu":
+        # Zamba2's layout: gate and up in one product, its halves
+        return {"gate_up": dense_init(gen, (d, 2 * ff), dtype),
+                "down": dense_init(gen, (ff, d), dtype)}
     p = {"wi": dense_init(gen, (d, ff), dtype),
          "wo": dense_init(gen, (ff, d), dtype)}
     if gated(cfg.activation):
@@ -31,9 +35,20 @@ def mlp_init(gen, cfg: ModelConfig, dtype, d_ff: Optional[int] = None):
     return p
 
 
-def mlp_apply(cfg: ModelConfig, p, x, ctx: Optional[ShardCtx] = None):
+def mlp_apply(cfg: ModelConfig, p, x, ctx: Optional[ShardCtx] = None,
+              extra: Optional[torch.Tensor] = None):
+    """The MLP of x.  With a `gate_up` weight (geglu), `extra` (an
+    adapter's output, as wide as gate_up's) is added to that product
+    before it splits into gate and up."""
     act = activation_fn(cfg.activation)
     x = gather_sequence(x, ctx)
+    if "gate_up" in p:
+        h = x @ p["gate_up"]
+        if extra is not None:
+            h = h + extra
+        gate, up = h.chunk(2, dim=-1)
+        out = (act(gate) * up) @ p["down"]
+        return constrain(out, ctx, "dp", "tp", None)
     h = x @ p["wi"]
     h = constrain(h, ctx, "dp", None, "tp")
     if "wg" in p:

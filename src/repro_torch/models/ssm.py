@@ -285,6 +285,19 @@ def _sharded_projections(cfg: ModelConfig, p, u, ctx):
     return z, x, Bm, Cm, dt
 
 
+def gated_norm(cfg: ModelConfig, y, z, scale):
+    """The mixer's gated RMSNorm of y · silu(z): over all d_inner
+    features or, with `cfg.ssm_grouped_norm`, in `ssm_ngroups` groups of
+    d_inner / ngroups, each normalised on its own (Zamba2's)."""
+    h = y * F.silu(z)
+    if not cfg.ssm_grouped_norm:
+        return rms_norm(h, scale, cfg.norm_eps)
+    g = cfg.ssm_ngroups
+    grouped = h.reshape(*h.shape[:-1], g, h.shape[-1] // g)
+    return rms_norm(grouped, scale.reshape(g, -1),
+                    cfg.norm_eps).reshape(h.shape)
+
+
 def mamba_apply(cfg: ModelConfig, p, u, ctx: Optional[ShardCtx] = None):
     """Full-sequence Mamba2 mixer.  u: (B, S, d) (already normed).
 
@@ -319,7 +332,7 @@ def mamba_apply(cfg: ModelConfig, p, u, ctx: Optional[ShardCtx] = None):
     y = y + p["D"].to(y.dtype)[:, None] * x
     y = y.reshape(B, S, cfg.d_inner)
     y = constrain(y, ctx, "dp", None, "tp")
-    y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
+    y = gated_norm(cfg, y, z, p["out_norm"])
     out = y @ p["out_proj"]
     return constrain(out, ctx, "dp", "tp", None)
 

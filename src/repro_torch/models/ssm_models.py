@@ -1,9 +1,19 @@
-"""Full models for the ssm (mamba2-780m) and hybrid (zamba2-7b) families.
+"""Full models for the ssm (mamba2-780m), hybrid (zamba2-7b) and zamba2
+(Zamba2-7B-Instruct) families.
 
-zamba2 structure: a Mamba2 backbone with ONE shared attention+MLP block
+hybrid structure: a Mamba2 backbone with ONE shared attention+MLP block
 (weights shared) applied before every `attn_every`-th layer.  Layers are
 processed in groups: [shared-attn] -> mamba x attn_every, so decode
 indexes the attention caches by group.
+
+zamba2 structure: `num_shared_blocks` shared transformer blocks (stacked
+under "shared_blocks"), invoked before each Mamba layer that
+`shared_block_layers` names; invocation i uses block i mod
+num_shared_blocks, its own LoRA adapter on the MLP's gate_up
+("adapters") and its own linear ("linears"), both stacked over the
+invocations.  It reads the
+stream x and the embedding's output e, and only layer l's mixer input
+gets its output t: x + Mamba_l(RMSNorm(x + t)).
 """
 from __future__ import annotations
 
@@ -11,7 +21,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.sharding import is_fake
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
@@ -44,7 +56,27 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
             "norm1": torch.ones((d,), dtype=dtype),
             "norm2": torch.ones((d,), dtype=dtype),
         }
+    if cfg.family == "zamba2":
+        params.update(_zamba2_init(cfg, gen, dtype))
     return params
+
+
+def _zamba2_init(cfg: ModelConfig, gen, dtype) -> dict:
+    d, ff, r = cfg.d_model, cfg.d_ff, cfg.adapter_rank
+    n = len(cfg.shared_block_layers)
+
+    def block():
+        return {"attn": attn.gqa_init(gen, cfg, dtype, d_in=2 * d),
+                "mlp": moe_mod.mlp_init(gen, cfg, dtype),
+                "norm1": torch.ones((2 * d,), dtype=dtype),
+                "norm2": torch.ones((d,), dtype=dtype)}
+
+    def adapter():
+        return {"lora_a": dense_init(gen, (d, r), dtype),
+                "lora_b": dense_init(gen, (r, 2 * ff), dtype)}
+    return {"shared_blocks": stack_init(cfg.num_shared_blocks, block),
+            "adapters": stack_init(n, adapter),
+            "linears": stack_init(n, lambda: dense_init(gen, (d, d), dtype))}
 
 
 def _mamba_block(cfg, x, p, ctx=None):
@@ -69,6 +101,61 @@ def _shared_attn_apply(cfg, p, x, positions, ctx=None):
     return _sp(x + moe_mod.mlp_apply(cfg, p["mlp"], h, ctx), ctx)
 
 
+def shared_block(cfg, i: int, blk, adapter, linear, x, e, positions,
+                 ctx=None):
+    """Invocation i of a zamba2 shared block `blk` and its linear, on the
+    stream x and the embedding's output e: t (B, S, d).  Counts each
+    call on real tensors by block in `shared_block.invocations_by` (a
+    train step under remat counts each invocation twice: forward and
+    recompute)."""
+    with spans.span(spans.SHARED_BLOCK):
+        if not (x.is_meta or is_fake(x)):
+            b = i % cfg.num_shared_blocks
+            shared_block.invocations_by[b] = \
+                shared_block.invocations_by.get(b, 0) + 1
+        h = rms_norm(torch.cat([x, e], dim=-1), blk["norm1"], cfg.norm_eps)
+        a = attn.gqa_apply(cfg, blk["attn"], h, positions=positions,
+                           causal=True, ctx=ctx,
+                           scale=(cfg.head_dim / 2) ** -0.5)
+        h = rms_norm(a, blk["norm2"], cfg.norm_eps)
+        lora = h @ adapter["lora_a"] @ adapter["lora_b"]
+        return moe_mod.mlp_apply(cfg, blk["mlp"], h, ctx, extra=lora) \
+            @ linear
+
+
+#: calls on real tensors by block (0: A, 1: B) since the count was last
+#: emptied
+shared_block.invocations_by = {}
+
+
+def _hybrid_layer(cfg, x, e, i, blk, adapter, linear, p, positions,
+                  ctx=None):
+    """Invocation i, then the Mamba layer p it runs before: the layer's
+    residual is x, taken before the invocation's output t is added."""
+    t = shared_block(cfg, i, blk, adapter, linear, x, e, positions, ctx)
+    h = _sp(rms_norm(x + t, p["norm"], cfg.norm_eps), ctx)
+    return _sp(x + ssm.mamba_apply(cfg, p["mixer"], h, ctx), ctx)
+
+
+def _zamba2_stack(cfg, params, x, ctx=None):
+    """The Mamba layers, each under its own remat; a layer that
+    `shared_block_layers` names shares its remat with its invocation."""
+    e = x
+    positions = torch.arange(x.shape[1], device=x.device)
+    at = {l: i for i, l in enumerate(cfg.shared_block_layers)}
+    for l in range(cfg.num_layers):
+        p = layer(params["layers"], l)
+        if l not in at:
+            x = remat(cfg, _mamba_block, cfg, x, p, ctx)
+            continue
+        i = at[l]
+        x = remat(cfg, _hybrid_layer, cfg, x, e, i,
+                  layer(params["shared_blocks"], i % cfg.num_shared_blocks),
+                  layer(params["adapters"], i), layer(params["linears"], i),
+                  p, positions, ctx)
+    return x
+
+
 def _groups(cfg: ModelConfig):
     """[(start, end), ...] mamba-layer groups, one shared-attn before each."""
     k = cfg.attn_every
@@ -86,6 +173,8 @@ def forward(cfg: ModelConfig, params, batch, ctx: Optional[ShardCtx] = None):
         x = _sp(x, ctx)
         if cfg.family == "ssm":
             x = _mamba_stack(cfg, params["layers"], x, ctx)
+        elif cfg.family == "zamba2":
+            x = _zamba2_stack(cfg, params, x, ctx)
         else:
             positions = torch.arange(x.shape[1], device=x.device)
             for (s, e) in _groups(cfg):
@@ -131,6 +220,9 @@ def decode_step(cfg: ModelConfig, params, batch,
                 ctx: Optional[ShardCtx] = None):
     """One decode step; returns (logits (B, 1, V), caches): the batch's
     caches, updated in place."""
+    if cfg.family == "zamba2":
+        raise NotImplementedError("decode of the zamba2 family "
+                                  f"({cfg.name}) is not implemented")
     with sharded(ctx):
         return _decode_step(cfg, params, batch, ctx)
 

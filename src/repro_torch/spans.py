@@ -20,6 +20,10 @@ them.
   train.optimizer   `adamw.update`
   data.synthetic_batch, data.to_device
                     the data pipeline's two functions
+  model.shared_block
+                    one invocation of a zamba2 shared block and its
+                    linear (`models.ssm_models.shared_block`): in the
+                    forward, and again in the recompute
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ ACCUMULATE = "train.accumulate"
 OPTIMIZER = "train.optimizer"
 SYNTHETIC_BATCH = "data.synthetic_batch"
 TO_DEVICE = "data.to_device"
+SHARED_BLOCK = "model.shared_block"
 
 
 def span(name: str):

@@ -23,8 +23,9 @@ from repro_torch.models.common import (ShardCtx, constrain, is_dtensor,
 from repro_torch.optim import adamw
 
 #: the parameter subtrees whose leaves stack the layers along dim 0
+#: (zamba2's shared blocks, adapters and linears: blocks and invocations)
 STACKED = frozenset({"layers", "dense_layers", "moe_layers", "enc_layers",
-                     "dec_layers"})
+                     "dec_layers", "shared_blocks", "adapters", "linears"})
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -76,7 +76,11 @@ def test_accounting_equals_reference(arch):
     from repro.configs.base import SHAPES as R_SHAPES
     from repro.flops import accounting as R_acc
     cfg, rcfg = get_config(arch), R_get(arch)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
+    want = dataclasses.asdict(rcfg)
+    # the fields only the port has (Zamba2-7B-Instruct's) at their defaults
+    own = {f.name: f.default for f in dataclasses.fields(cfg)
+           if f.name not in want}
+    assert dataclasses.asdict(cfg) == want | own
     for name, shape in SHAPES.items():
         rshape = R_SHAPES[name]
         for kw in VARIANTS:
