@@ -132,6 +132,22 @@
    three kernel launches a call; the kernels' time beside their bound
    (2.5x the forward's: five products a causal pair), the plain
    version's and SDPA's backward (the library's, timed only).
+   10c. B4's backward (`csrc/ssd_bwd.cu`, which `kernels.grad`'s
+   `ssd_intra_bwd` routes bf16 at hd 64 to) at zamba2-7b-instruct's
+   Mamba2 layer in its train cell (BC 32 chunks of Q 256, 112 heads of
+   64, 2 groups, state 64): dx, d dt, d dacs, db and dc against
+   `ssd_intra_bwd_plain` in f32 on the same bf16 inputs, dx, db and dc
+   by the check of 10b and d dt and d dacs, f32 sums rounded nowhere, by
+   one 2^7 times tighter (2^-12 of an element's summands'
+   root-sum-square, a relative RMS of 1e-5), each element's summands
+   from `ref.ssd_bwd_scales`; the checks must reject a zeroed gradient,
+   what the router gives under `grad_mutants`' d-dacs-dropped and
+   next-head-decays, a dB with one 64-column tile's contribution
+   dropped, and d dt and d dacs summed from dM rounded to bf16 (the
+   plain version so patched); two calls bitwise equal; one
+   call on the kernel route and three kernel launches a call; the
+   kernels' time (each kernel's from the profiler, where it sees them)
+   beside their bound, the plain version's and B4's forward.
 
 11. Serves zamba2-7b at full width (bf16, 6.79 B parameters from a
    seeded generator on the card) through the port's entry points:
@@ -155,8 +171,10 @@
    the profiler, each of which must launch exactly 28 flash and 162 SSD
    kernels on their tensor-core variants (14 and 81 in the forward, the
    same again in remat's recompute; the autograd Functions' backwards
-   launch none of these) and call the attention backward 14 times, each
-   on the plain route (hd 112).  Prints step s, tokens/s, MFU from `train_step_flops`
+   launch none of these), call the attention backward 14 times, each
+   on the plain route (hd 112), and call the SSD backward 81 times, each
+   on the kernel route (`grad.ssd_bwd_routes()`), its three kernels 81
+   times each.  Prints step s, tokens/s, MFU from `train_step_flops`
    without and with the recompute, the loss of each step, peak memory,
    the idle share and the top ops.  Correctness: (a) one layer group's
    gradients (the shared block and layers 0-5, S = 512) for every leaf in
@@ -265,12 +283,15 @@ every kernel's record (the histogram kernel's also carries
 `live_launches`, its counts over phases 5-8; the flash and SSD kernels'
 carry their other widths and working types under `paths` (" f32" for
 the SIMT kernels' f32 calls), `model_launches`, their launches in phase 11's prefill, and
-`train_launches`, their launches a phase 12 train step; the histogram
+`train_launches`, their launches a phase 12 train step (the SSD
+kernel's `backward`, phase 10c's record, carries the backward's); the
+histogram
 and GEMM kernels' carry `bench_launches`, their counts over phase 13's
 benchmark suite; the histogram kernel's carries `tools_launches`, its
 launches in each of phase 14's CLI self-checks; the histogram and GEMM
 kernels' carry `counters_launches`, their counts over phase 15, and the
-flash and SSD kernels' theirs over phase 15's train window) and, last,
+flash and SSD kernels' and the SSD backward's theirs over phase 15's
+train window) and, last,
 `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result,
 when a phase fails, when CUDA is absent, or when run outside a checkout
 of the repository.
@@ -435,7 +456,7 @@ def main() -> None:
     # -- 1. build and device ------------------------------------------------
     t0 = time.perf_counter()
     _build.build(["fleet_hist", "gemm", "ssd_scan", "flash_attention",
-                  "flash_bwd"])
+                  "flash_bwd", "ssd_bwd"])
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
     mesh_cells = start_mesh_cells()
     card = card_name()
@@ -589,6 +610,11 @@ def main() -> None:
     # -- 10b. B3's backward at granite-3-2b's and llama3.2-3b's width -----
     records = {r["name"]: r for r in kernels}
     records["flash_attention"]["backward"] = flash_bwd_phase(torch, dev, card)
+
+    # -- 10c. B4's backward at zamba2-7b-instruct's layer -------------------
+    records["ssd_intra"]["backward"] = ssd_bwd_phase(torch, dev, card)
+    # phases 12 and 15 count the backward's launches into its record
+    records["ssd_intra_bwd"] = records["ssd_intra"]["backward"]
 
     # -- 11. the model zoo's serving path at full width --------------------
     model_launches, params, measured = model_phase(torch, dev, card, {
@@ -1523,31 +1549,38 @@ def close_rows(torch, name: str, got, want, mutants: dict) -> float:
     return mx
 
 
-#: the bf16 backward's whole-tensor limit: the RMS of its difference from
-#: the f32 plain version within 1e-2 of the plain version's RMS (the card
-#: read 2.3e-3 to 2.5e-3)
-BWD_REL_RMS = 1e-2
+#: `close_summands`' limits: |got - want| <= a·|want| + b·σ + c·RMS(want)
+#: element by element and RMS(got - want) <= d·RMS(want), as (a, b, c, d).
+#: A bf16 backward's gradient: the kernels round a factor to bf16 before
+#: its product (2^-9 of each summand, which the summands' cancellation
+#: does not shrink), the RMS term the f32 cancellation where the gradient
+#: is 0, and the whole within 1e-2 (the card read 1.7e-3 to 2.5e-3).
+BWD_TOL = (2 ** -6, 2 ** -5, 2 ** -12, 1e-2)
+#: The SSD backward's d dt and d dacs: f32 sums of f32 products of f32
+#: tensor-core products of bf16 operands, rounded nowhere, so they differ
+#: from the f32 plain version only in the order of f32 additions (the
+#: card read at most 3.5e-5·σ and a relative RMS of 4.6e-7 at
+#: zamba2-7b-instruct's layer, 1.7e-6 at the gpu tests' shapes); a
+#: backward that summed dM or M rounded to bf16 reads ~1e-3 of both.
+F32_SUM_TOL = (0.0, 2 ** -12, 2 ** -20, 1e-5)
 
 
-def close_summands(torch, name: str, got, want, sigma,
-                   mutants: dict) -> tuple[float, float]:
-    """The bf16 backward's check: fails unless got has want's shape, is
-    finite, |got - want| <= 2^-6·|want| + 2^-5·σ + 2^-12·RMS(want)
-    everywhere, σ each element's summands' root-sum-square
-    (`ref.flash_bwd_scales`: the kernels round P and dS to bf16 before
-    their products, 2^-9 of each summand, which the summands'
-    cancellation does not shrink), the last term the f32 cancellation of
-    dP − D where the gradient is 0, and RMS(got - want) <=
-    `BWD_REL_RMS`·RMS(want); and unless the check rejects each of
-    `mutants`, by either part.  Prints max |diff| over σ and each
+def close_summands(torch, name: str, got, want, sigma, mutants: dict,
+                   tol: tuple = BWD_TOL) -> tuple[float, float]:
+    """A backward's check: fails unless got has want's shape, is finite,
+    |got - want| <= a·|want| + b·σ + c·RMS(want) everywhere, σ each
+    element's summands' root-sum-square (`ref.flash_bwd_scales`,
+    `ref.ssd_bwd_scales`), and RMS(got - want) <= d·RMS(want), (a, b, c,
+    d) = `tol` (`BWD_TOL`, `F32_SUM_TOL`); and unless the check rejects
+    each of `mutants`, by either part.  Prints max |diff| over σ and each
     verdict; returns max |diff| and the relative RMS."""
     check(tuple(got.shape) == tuple(want.shape),
           f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    a, b, c, rel_max = tol
     w = want.double()
     rms = float(w.pow(2).mean().sqrt())
-    limit = BF16_RTOL * w.abs() + BF16_ROW_ATOL * sigma.double() \
-        + 2 ** -12 * rms
+    limit = a * w.abs() + b * sigma.double() + c * rms
 
     def verdict(t):
         d = t.double() - w
@@ -1558,22 +1591,22 @@ def close_summands(torch, name: str, got, want, sigma,
     mx = float(diff.max())
     n_bad, rel = verdict(got)
     check(n_bad == 0, f"{name}: {n_bad} elements differ from the plain "
-          f"version beyond 2^-6 of it + 2^-5 of its summands' "
-          f"root-sum-square (max |diff| {mx:.3e})")
-    check(rel <= BWD_REL_RMS, f"{name}: the difference's RMS is {rel:.3e} "
-          f"of the plain version's, past {BWD_REL_RMS}")
+          f"version beyond {a:.3g} of it + {b:.3g} of its summands' "
+          f"root-sum-square + {c:.3g} of its RMS (max |diff| {mx:.3e})")
+    check(rel <= rel_max, f"{name}: the difference's RMS is {rel:.3e} "
+          f"of the plain version's, past {rel_max}")
     caught = []
     for what, t in mutants.items():
         n, r = verdict(t)
-        check(n > 0 or r > BWD_REL_RMS,
+        check(n > 0 or r > rel_max,
               f"{name}: the check passes a {what} output")
         caught.append(f"{what} ({n:,d} elements, relative RMS {r:.3e})")
     sg = sigma.double()
     per = float((diff / sg)[sg > 2 ** -12 * rms].max())
     print(f"{name}: max |diff| {mx:.3e}, at most {per:.3e} of an element's "
-          f"summands' root-sum-square, relative RMS {rel:.3e} (limit "
-          f"{BWD_REL_RMS}), RMS {rms:.3e}; the check rejects, of "
-          f"{w.numel():,d} elements: " + ", ".join(caught))
+          f"summands' root-sum-square (limit {b:.3g}), relative RMS "
+          f"{rel:.3e} (limit {rel_max}), RMS {rms:.3e}; the check rejects, "
+          f"of {w.numel():,d} elements: " + ", ".join(caught))
     return mx, rel
 
 
@@ -2380,6 +2413,144 @@ def flash_bwd_phase(torch, dev, card: str) -> dict:
     return out
 
 
+#: phase 10c's layer: the model, and its train cell's batch and length
+SSD_BWD_LAYER = ("zamba2-7b-instruct", 2, 4096)
+
+
+def rounded_dm_plain(torch, *ins):
+    """`grad.ssd_intra_bwd_plain` with dM = dY·Xᵀ rounded to bf16 where
+    it forms it (torch.einsum patched for that product alone), so d dt
+    and d dacs sum rounded values: the fault `F32_SUM_TOL` must reject."""
+    from unittest import mock
+
+    from repro_torch.kernels import grad
+    einsum = torch.einsum
+
+    def rounded(spec, *ops):
+        out = einsum(spec, *ops)
+        return out.bfloat16().to(out.dtype) \
+            if spec == "zighp,zjghp->zghij" else out
+    with mock.patch.object(torch, "einsum", rounded):
+        return grad.ssd_intra_bwd_plain(*ins)
+
+
+def ssd_bwd_phase(torch, dev, card: str) -> dict:
+    """Phase 10c: the SSD backward's kernels at zamba2-7b-instruct's
+    Mamba2 layer in its train cell (BC 32 chunks of Q 256, 112 heads of
+    64, g 2, ds 64), through `grad.ssd_intra_bwd` (the route the train
+    step takes), held against `ssd_intra_bwd_plain` in f32 on the same
+    bf16 inputs with `close_summands` (σ from `ref.ssd_bwd_scales`; d dt
+    and d dacs by `F32_SUM_TOL`, the others by `BWD_TOL`; mutants: a
+    zeroed gradient, what the router gives under `grad_mutants`'
+    d-dacs-dropped and next-head-decays, the kernels' dB without one
+    64-column tile's contribution, and d dt and d dacs summed from dM
+    rounded to bf16), bitwise equal over two calls, timed beside the
+    bound, the plain version and B4's forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grad, ref, ssd_scan
+    model, B, S = SSD_BWD_LAYER
+    cfg = get_config(model)
+    Q, hd, g, ds = cfg.ssm_chunk, cfg.ssm_head_dim, cfg.ssm_ngroups, \
+        cfg.ssm_state
+    nh = cfg.ssm_expand * cfg.d_model // hd
+    BC = B * S // Q
+    check((BC, Q, nh, hd, g, ds) == (32, 256, 112, 64, 2, 64),
+          f"{model}'s SSD layer is not (32, 256, 112, 64, 2, 64)")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x, dy = (torch.randn((BC, Q, nh, hd), generator=gen, device=dev)
+             .to(torch.bfloat16) for _ in range(2))
+    b, c = ((torch.randn((BC, Q, g, ds), generator=gen, device=dev)
+             * ds ** -0.5).to(torch.bfloat16) for _ in range(2))
+    dt = torch.rand((BC, Q, nh), generator=gen, device=dev) * 0.1
+    A = -torch.rand(nh, generator=gen, device=dev) * 4
+    ins = (x, dt, torch.cumsum(dt * A, 1), b, c, dy)
+    routes = grad.ssd_bwd_routes()
+    launches = dict(ssd_scan.ssd_intra_bwd_kernel.launches_by)
+    got = grad.ssd_intra_bwd(*ins)
+    again = grad.ssd_intra_bwd(*ins)
+    torch.cuda.synchronize()
+    now = grad.ssd_bwd_routes()
+    calls = {r: now[r] - routes[r] for r in now}
+    check(calls == {"kernel": 2, "plain": 0},
+          f"SSD backward at {model} width took the routes {calls}, not the "
+          f"kernels twice")
+    now = ssd_scan.ssd_intra_bwd_kernel.launches_by
+    launched = {n: now[n] - launches[n] for n in now}
+    check(launched == {"dg": 2, "dx": 2, "dbdc": 2},
+          f"SSD backward at {model} width launched {launched}, not each "
+          f"kernel twice")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"SSD backward at {model} width: two calls differ")
+    del again
+    mutant = {}
+    for name in ("d-dacs-dropped", "next-head-decays"):
+        with grad_mutants(torch)[name]:
+            mutant[name] = grad.ssd_intra_bwd(*ins)
+    # the kernels' dB without the contribution of dG's tile (rows 192-255,
+    # columns 64-127) of chunk 0, group 0, from the kernels' own f32 dG
+    dg = ssd_scan.ssd_intra_bwd_op(*ins)[-1]
+    tile_dropped = got[3].float()
+    tile_dropped[0, 64:128, 0] -= dg[0, 0, 192:256, 64:128].T \
+        @ c[0, 192:256, 0].float()
+    del dg
+    f32 = [t.float() for t in ins]
+    plain = grad.ssd_intra_bwd_plain(*f32)
+    rounded = rounded_dm_plain(torch, *f32)[1:3]
+    sigmas = ref.ssd_bwd_scales(*f32)
+    del f32
+    err, rel = {}, {}
+    names = ("dx", "ddt", "ddacs", "db", "dc")
+    for k, (name, gt, w, sg) in enumerate(zip(names, got, plain, sigmas)):
+        mutants = {"zeroed": torch.zeros_like(w),
+                   "next-head-decays": mutant["next-head-decays"][k]}
+        tol = BWD_TOL
+        if name in ("ddt", "ddacs"):
+            mutants["summed from dM rounded to bf16"] = rounded[k - 1]
+            tol = F32_SUM_TOL
+        if name == "ddacs":
+            mutants["grad_mutants d-dacs-dropped"] = mutant[
+                "d-dacs-dropped"][k]
+        if name == "db":
+            mutants["one 64-column tile's contribution dropped"] = \
+                tile_dropped
+        err[name], rel[name] = close_summands(
+            torch, f"SSD backward {name} at {model} width", gt, w, sg,
+            mutants, tol)
+    del got, plain, sigmas, mutant, tile_dropped, rounded
+    torch.cuda.empty_cache()
+    ms = event_ms(torch, lambda: ssd_scan.ssd_intra_bwd_kernel(*ins), REPS)
+    plain_ms = event_ms(torch, lambda: grad.ssd_intra_bwd_plain(*ins), 1)
+    fwd_ms = event_ms(torch, lambda: ssd_scan.ssd_intra_kernel(*ins[:5]),
+                      REPS)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ssd_scan.ssd_intra_bwd_kernel(*ins)
+        torch.cuda.synchronize()
+    kernels, _ = device_times(prof.key_averages())
+    # the products the gradients need over the causal pairs: C·Bᵀ, dC and
+    # dB a group, dM and dX a head; x, dy, dx, b, c, db, dc, dt, dacs, d
+    # dt and d dacs read or written once
+    pairs = BC * Q * (Q + 1) // 2
+    n_ops = pairs * (g * 3 * 2 * ds + nh * 2 * 2 * hd)
+    n_bytes = 3 * x.numel() * 2 + 4 * b.numel() * 2 + 4 * dt.numel() * 4
+    bd = bound(n_bytes, n_ops, "bf16")
+    print(f"SSD backward {model} (BC {BC}, Q {Q}, nh {nh}, hd {hd}, g {g}, "
+          f"ds {ds}), bf16 [kernel]: max |diff| "
+          + " ".join(f"{n} {err[n]:.3e}" for n in names)
+          + f"; kernels {ms:.4f} ms ({bd['bound_ms'] / ms:.1%} of bound; "
+          f"{top_times(kernels, 3) if kernels else 'split not measured'}), "
+          f"plain {plain_ms:.4f} ms, B4's forward "
+          f"{fwd_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']},"
+          f" {n_ops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB); {card}")
+    out = {model: {"source": "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+                   "route": "kernel", "max_abs_err": err, "rel_rms": rel,
+                   "ms": ms, "plain_ms": plain_ms, "forward_ms": fwd_ms,
+                   **bd}}
+    del x, dy, b, c, dt, A, ins
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # 11. the model zoo's serving path at full width
 # ---------------------------------------------------------------------------
@@ -3132,12 +3303,14 @@ def train_phase(torch, dev, card: str, params, poller) -> tuple:
     from repro_torch.flops.accounting import train_step_flops
     from repro_torch.kernels import grad
     from repro_torch.kernels.flash_attention import flash_attention_kernel
-    from repro_torch.kernels.ssd_scan import ssd_intra_kernel
+    from repro_torch.kernels.ssd_scan import (ssd_intra_bwd_kernel,
+                                              ssd_intra_kernel)
     from repro_torch.optim import adamw
     from repro_torch.train.trainer import TrainConfig, Trainer
     import gc
     t_phase = time.perf_counter()
     fa, sk = flash_attention_kernel, ssd_intra_kernel
+    sb = ssd_intra_bwd_kernel
     cfg = get_config(SERVE_MODEL)
     train_group_check(torch, dev, cfg, params)
     marks = {"group gradients": time.perf_counter()}
@@ -3174,9 +3347,13 @@ def train_phase(torch, dev, card: str, params, poller) -> tuple:
 
     window = {}
 
+    def tally():
+        return (dict(fa.launches_by), dict(sk.launches_by),
+                grad.flash_bwd_routes(), dict(sb.launches_by),
+                grad.ssd_bwd_routes())
+
     def hook(step):
-        counts.append((dict(fa.launches_by), dict(sk.launches_by),
-                       grad.flash_bwd_routes()))
+        counts.append(tally())
         host.append(snapshot())
         if step == 1:                   # phase 15's window: the timed steps
             torch.cuda.synchronize()
@@ -3194,7 +3371,7 @@ def train_phase(torch, dev, card: str, params, poller) -> tuple:
             TrainConfig(total_steps=n_steps, ckpt_every=0, ckpt_dir=ck,
                         log_every=1, monitor=False, device=str(dev)),
             fault_hook=hook, params_fn=handed.pop)
-        zero_counts(fa, sk)
+        zero_counts(fa, sk, sb)
         gc.callbacks.append(on_gc)
         try:
             out = trainer.run()
@@ -3202,15 +3379,15 @@ def train_phase(torch, dev, card: str, params, poller) -> tuple:
             gc.callbacks.remove(on_gc)
         torch.cuda.synchronize()
         prof.__exit__(None, None, None)
-    counts.append((dict(fa.launches_by), dict(sk.launches_by),
-                   grad.flash_bwd_routes()))
+    counts.append(tally())
     host.append(snapshot())
     peak = torch.cuda.max_memory_allocated(dev)
     n_groups = len(range(0, cfg.num_layers, cfg.attn_every))
     want = (2 * n_groups, 2 * cfg.num_layers)
     per_step = []
     for i in range(n_steps):
-        (f0, s0, b0), (f1, s1, b1) = counts[i], counts[i + 1]
+        f0, s0, b0, l0, r0 = counts[i]
+        f1, s1, b1, l1, r1 = counts[i + 1]
         step = ({k: f1[k] - f0[k] for k in f1}, {k: s1[k] - s0[k] for k in s1})
         check(step == ({"wgmma_bf16": want[0], "simt": 0},
                        {"wgmma_bf16": want[1], "simt": 0}),
@@ -3220,7 +3397,14 @@ def train_phase(torch, dev, card: str, params, poller) -> tuple:
         check(bwd == {"kernel": 0, "plain": n_groups},
               f"train step {i}: attention backward calls {bwd}, expected "
               f"{n_groups} on the plain route (hd {cfg.head_dim})")
-        per_step.append(step)
+        ssd_bwd = {k: r1[k] - r0[k] for k in r1}
+        ssd_launched = {k: l1[k] - l0[k] for k in l1}
+        check(ssd_bwd == {"kernel": cfg.num_layers, "plain": 0}
+              and ssd_launched == {k: cfg.num_layers for k in l1},
+              f"train step {i}: SSD backward calls {ssd_bwd} and launches "
+              f"{ssd_launched}, expected {cfg.num_layers} on the kernel "
+              f"route, each of its three kernels {cfg.num_layers} times")
+        per_step.append(step + (sum(ssd_launched.values()),))
     losses = [m["loss"] for m in out["metrics"]]
     check(out["final_step"] == n_steps and len(losses) == n_steps
           and all(math.isfinite(v) for v in losses),
@@ -3247,7 +3431,9 @@ def train_phase(torch, dev, card: str, params, poller) -> tuple:
           f"wgmma_bf16 (forward {n_groups} and {cfg.num_layers}, the same "
           f"again in the recompute; the backwards launch none of these); "
           f"attention backward {n_groups} calls, all on the plain route "
-          f"(hd {cfg.head_dim})")
+          f"(hd {cfg.head_dim}); SSD backward {cfg.num_layers} calls, all "
+          f"on the kernel route, {per_step[1][2]} launches (dG, dX, dC/dB "
+          f"{cfg.num_layers} each)")
     deltas = [[b - a for a, b in zip(host[i], host[i + 1])]
               for i in range(n_steps)]
     print("train steps, host side, each step (hook to hook): allocator "
@@ -3315,14 +3501,15 @@ def train_phase(torch, dev, card: str, params, poller) -> tuple:
         t = mark
     print(f"train phase 12: {time.perf_counter() - t_phase:.2f} s ("
           + ", ".join(split) + " s)")
+    timed = per_step[1:1 + TRAIN_TIMED]
     window.update(cfg=cfg, shape=shape, steps=TRAIN_TIMED, launches={
-        "flash_attention": sum(st[0]["wgmma_bf16"]
-                               for st in per_step[1:1 + TRAIN_TIMED]),
-        "ssd_intra": sum(st[1]["wgmma_bf16"]
-                         for st in per_step[1:1 + TRAIN_TIMED])})
+        "flash_attention": sum(st[0]["wgmma_bf16"] for st in timed),
+        "ssd_intra": sum(st[1]["wgmma_bf16"] for st in timed),
+        "ssd_intra_bwd": sum(st[2] for st in timed)})
     # a timed step's launches, as counted (every step's equal `want`)
     return {"flash_attention": per_step[1][0]["wgmma_bf16"],
-            "ssd_intra": per_step[1][1]["wgmma_bf16"]}, \
+            "ssd_intra": per_step[1][1]["wgmma_bf16"],
+            "ssd_intra_bwd": per_step[1][2]}, \
         {"step_s": s, "peak": peak - others}, window
 
 
@@ -3798,7 +3985,7 @@ MESH_WAIT_S = 900
 #: own PyTorch, must agree within MESH_AGREE (a relative limit), or the
 #: placements DTensor chose there differ from the ones the tests hold
 MESH_CPU = {
-    ("zamba2-7b", "train_4k"): (2272756736, 243061199670.0, 301989550096384.0),
+    ("zamba2-7b", "train_4k"): (1639616000, 243061199670.0, 302402672263168.0),
     ("zamba2-7b", "prefill_32k"): (1757031424, 57688919040.0, 91897568559104.0),
     ("zamba2-7b", "decode_32k"): (4692163072, 92968620.0, 12669408256.0),
     ("nemotron-4-340b", "train_4k"): (33380686848, 1944075901470.0, 1.0331938967519232e+16),

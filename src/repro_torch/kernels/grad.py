@@ -15,7 +15,13 @@ hand-written Hopper kernels (`csrc/flash_bwd.cu`, through the op
 `repro_torch::flash_attention_bwd`), which round P and dS to bf16 before
 the products that take them and keep every sum in f32; everything else
 (the CPU, f32 and f64, other head dims, a narrower V) takes
-`flash_bwd_plain`, in plain PyTorch.  `ssd_intra_bwd` is plain PyTorch.
+`flash_bwd_plain`, in plain PyTorch.  `ssd_intra_bwd` routes the same
+way (`ssd_scan.bwd_route`): card tensors in bf16 with hd 64, ds a
+multiple of 64 up to 256 and Q a multiple of 64 up to 1,024 take the
+hand-written Hopper kernels (`csrc/ssd_bwd.cu`, through the op
+`repro_torch::ssd_intra_bwd`), which round M to bf16 only before dX's
+product (where the forward rounds it) and keep dG and every sum in f32;
+everything else takes `ssd_intra_bwd_plain`, in plain PyTorch.
 
 `kernels.ops.flash` and `kernels.ops.ssd` route through these only when
 grad mode is on and an input requires grad; the kernels' wrappers raise
@@ -115,6 +121,29 @@ flash_bwd_plain.calls = 0
 
 
 def ssd_intra_bwd(x, dt, dacs, b, c, dy):
+    """(dx, d dt, d dacs, db, dc) of the intra-chunk SSD term: the
+    backward's kernels where `ssd_scan.bwd_route` sends the inputs, else
+    `ssd_intra_bwd_plain`.  Each route keeps its own count
+    (`ssd_bwd_routes`)."""
+    BC, Q, nh, hd = x.shape
+    g, ds = b.shape[-2:]
+    if ssd_scan.bwd_route(x.device.type, x.dtype, Q, hd, ds, nh,
+                          g) == "kernel":
+        return ssd_scan.ssd_intra_bwd_kernel(x, dt, dacs, b, c, dy)
+    return ssd_intra_bwd_plain(x, dt, dacs, b, c, dy)
+
+
+def ssd_bwd_routes() -> dict:
+    """SSD backward calls of each route since their counts were last set
+    to 0: "kernel" from the kernels' own count (each call launches one
+    `dx` kernel, `ssd_intra_bwd_kernel.launches_by`), "plain" from
+    `ssd_intra_bwd_plain.calls`.  Calls on fake or meta tensors count in
+    neither."""
+    return {"kernel": ssd_scan.ssd_intra_bwd_kernel.launches_by["dx"],
+            "plain": ssd_intra_bwd_plain.calls}
+
+
+def ssd_intra_bwd_plain(x, dt, dacs, b, c, dy):
     """(dx, d dt, d dacs, db, dc) of the intra-chunk SSD term
     Y_i = Σ_{j<=i} M_ij X_j, M = G ∘ L ∘ dt_j per head, G = C·Bᵀ of the
     head's group, L_ij = exp(dacs_i − dacs_j) for j <= i (else 0).
@@ -124,7 +153,8 @@ def ssd_intra_bwd(x, dt, dacs, b, c, dy):
     L_ij; with W = dM ∘ M, d dacs_i += Σ_j W_ij and d dacs_j −= Σ_i W_ij.
     All in f32 (f64 for f64 inputs), blocked over chunks.  The card's
     kernels round M to x's dtype before M·X (as the reference's
-    `_ssd_kernel` does); this backward does not.
+    `_ssd_kernel` does); this backward does not.  Counts each call on
+    real tensors in `ssd_intra_bwd_plain.calls`.
     """
     BC, Q, nh, hd = x.shape
     g, ds = b.shape[-2:]
@@ -161,7 +191,13 @@ def ssd_intra_bwd(x, dt, dacs, b, c, dy):
         dg = (dm * L * dtj[..., None, :]).sum(2)              # (n, g, Q, Q)
         dc[z] = torch.einsum("zgij,zjgs->zigs", dg, bf).to(c.dtype)
         db[z] = torch.einsum("zgij,zigs->zjgs", dg, cf).to(b.dtype)
+    if not (x.is_meta or sharding.is_fake(x)):
+        ssd_intra_bwd_plain.calls += 1
     return dx, ddt, ddacs, db, dc
+
+
+#: calls on real tensors since the count was last set to 0
+ssd_intra_bwd_plain.calls = 0
 
 
 def _layout(out):

@@ -112,3 +112,43 @@ def flash_bwd_scales(q, k, v, o, do, *, causal: bool, scale: float,
         sk += torch.einsum("bkgqj,bqkgd->bjkd", ds2, qb.square())
         sv += torch.einsum("bkgqj,bqkgd->bjkd", p.square(), dob.square())
     return sq, sk.sqrt() * scale, sv.sqrt()
+
+
+def ssd_bwd_scales(x, dt, dacs, b, c, dy):
+    """The root-sum-square of each SSD intra-chunk gradient element's
+    summands, in f32 (f64 for f64 inputs), a chunk at a time, with M, dM,
+    W and dG as `grad.ssd_intra_bwd_plain` forms them: for dx_jp,
+    sqrt(Σ_i (M_ij·dy_ip)²); for d dt_j, sqrt(Σ_i (dM_ij·G_ij·L_ij)²);
+    for d dacs_q, sqrt(Σ_j W_qj² + Σ_i W_iq²); for dc_is, sqrt(Σ_j
+    (dG_ij·b_js)²); for db_js, sqrt(Σ_i (dG_ij·c_is)²).  A backward that
+    rounds M or dG to bf16 before a product moves each summand by at most
+    2^-9 of itself, so the element by ~2^-9 of this root-sum-square."""
+    BC, Q, nh, hd = x.shape
+    g = b.shape[2]
+    hpg = nh // g
+    ct = compute_dtype(x.dtype)
+    outs = [torch.empty(t.shape, dtype=ct, device=x.device)
+            for t in (x, dt, dacs, b, c)]
+    upper = torch.ones((Q, Q), dtype=torch.bool, device=x.device).triu(1)
+    for z in range(BC):
+        xf, dyf = (t[z].to(ct).reshape(Q, g, hpg, hd) for t in (x, dy))
+        bf, cf = b[z].to(ct), c[z].to(ct)                      # (Q, g, ds)
+        da, dtj = (t[z].to(ct).reshape(Q, g, hpg).permute(1, 2, 0)
+                   for t in (dacs, dt))                        # (g, hpg, Q)
+        gm = torch.einsum("igs,jgs->gij", cf, bf)
+        L = (da[..., :, None] - da[..., None, :]).masked_fill(
+            upper, float("-inf")).exp()
+        gl = gm[:, None] * L
+        m = gl * dtj[..., None, :]
+        dm = torch.einsum("ighp,jghp->ghij", dyf, xf)
+        w = dm * m
+        outs[0][z] = torch.einsum("ghij,ighp->jghp", m.square(),
+                                  dyf.square()).sqrt().reshape(Q, nh, hd)
+        outs[1][z] = (dm * gl).square().sum(-2).sqrt().permute(
+            2, 0, 1).reshape(Q, nh)
+        outs[2][z] = (w.square().sum(-1) + w.square().sum(-2)).sqrt(
+            ).permute(2, 0, 1).reshape(Q, nh)
+        dg2 = (dm * L * dtj[..., None, :]).sum(1).square()     # (g, Q, Q)
+        outs[4][z] = torch.einsum("gij,jgs->igs", dg2, bf.square()).sqrt()
+        outs[3][z] = torch.einsum("gij,igs->jgs", dg2, cf.square()).sqrt()
+    return tuple(outs)

@@ -28,6 +28,16 @@ rule (`_sharding_rule`: batch·chunks, or heads with their B/C groups),
 which launches it on each device's shards; on CPU shards the op runs
 the plain version.
 
+The backward (`kernels.grad.ssd_intra_bwd`) routes by what its inputs
+show (`bwd_route`): card tensors in bf16 with hd 64, ds a multiple of 64
+up to 256 and Q a multiple of 64 up to 1,024 launch `csrc/ssd_bwd.cu`'s
+three kernels (dG with d dacs's row part, then dX, d dt and d dacs, then
+dC and dB; no atomics, so repeatable bitwise) through the op
+`torch.ops.repro_torch.ssd_intra_bwd`, whose fake allocates the five
+gradients and the kernels' f32 dG scratch and whose FLOP formula counts
+the tiles they run (`ssd_bwd_flops`); everything else takes the plain
+backward, `grad.ssd_intra_bwd_plain`.
+
 B/C arrive in their groups: head h reads group h // (nh / g), where the
 reference takes them broadcast to one copy a head (g = nh here).
 """
@@ -254,3 +264,139 @@ def ssd_intra_kernel(x, dt, dacs, b, c, *, head_block: int = 8):
 #: were last set to 0
 ssd_intra_kernel.launches = 0
 ssd_intra_kernel.launches_by = {"wgmma_bf16": 0, "simt": 0}
+
+
+# ---------------------------------------------------------------------------
+# the backward: csrc/ssd_bwd.cu
+# ---------------------------------------------------------------------------
+#: the head dim of the backward's kernels
+_BWD_HD = 64
+#: rows and columns of the tiles the backward's products run
+_BWD_TILE = 64
+
+
+def bwd_route(device_type: str, dtype: torch.dtype, Q: int, hd: int, ds: int,
+              nh: int, g: int) -> str:
+    """Which backward an SSD call takes, from what its inputs show:
+    "kernel" (`csrc/ssd_bwd.cu`) for card tensors (CUDA, or meta ones that
+    stand for them in a shape-only trace) in bf16 with hd 64, ds a
+    multiple of 64 up to 256 and Q a multiple of 64 up to 1,024 (the
+    tensor-core forward's shapes at hd 64); "plain"
+    (`grad.ssd_intra_bwd_plain`) for everything else: CPU tensors, f32 and
+    f64, other shapes."""
+    return "kernel" if (device_type in ("cuda", "meta")
+                        and dtype == torch.bfloat16 and hd == _BWD_HD
+                        and ds % 64 == 0 and 64 <= ds <= _MAX_DS
+                        and Q % 64 == 0 and 64 <= Q <= _WGMMA_MAX_Q
+                        and g >= 1 and nh % g == 0) else "plain"
+
+
+def _bwd_kernel():
+    from repro_torch.kernels import _build
+    fn = _build.load("ssd_bwd").ssd_intra_bwd_bf16
+    if fn.argtypes is None:
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 12 + [i32] * 7 + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+@torch.library.custom_op("repro_torch::ssd_intra_bwd", mutates_args=())
+def ssd_intra_bwd_op(x: torch.Tensor, dt: torch.Tensor, dacs: torch.Tensor,
+                     b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, ddt, ddacs, db, dc, dg): the three launches of
+    `csrc/ssd_bwd.cu` on validated contiguous CUDA inputs, as an op; no
+    count.  `dg` is the kernels' f32 scratch (BC, g, Q, Q) of dG summed
+    over each group's heads (tiles above the diagonal left unwritten)."""
+    if any(t.data_ptr() % 16 for t in (x, b, c, dy)):
+        raise ValueError("the backward's TMA loads take 16-byte-aligned x, "
+                         "b, c and dy")
+    BC, Q, nh, hd = x.shape
+    g, ds = b.shape[-2:]
+    dx, db, dc = torch.empty_like(x), torch.empty_like(b), torch.empty_like(c)
+    ddt, ddacs = torch.empty_like(dt), torch.empty_like(dacs)
+    dg = torch.empty((BC, g, Q, Q), dtype=torch.float32, device=x.device)
+    err = _bwd_kernel()(
+        x.data_ptr(), dt.data_ptr(), dacs.data_ptr(), b.data_ptr(),
+        c.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+        ddacs.data_ptr(), db.data_ptr(), dc.data_ptr(), dg.data_ptr(), BC, Q,
+        nh, hd, g, ds, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_intra_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    return dx, ddt, ddacs, db, dc, dg
+
+
+@ssd_intra_bwd_op.register_fake
+def _(x, dt, dacs, b, c, dy):
+    BC, Q = x.shape[:2]
+    return (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(dacs),
+            torch.empty_like(b), torch.empty_like(c),
+            x.new_empty((BC, b.shape[2], Q, Q), dtype=torch.float32))
+
+
+def ssd_bwd_flops(x_shape, b_shape) -> int:
+    """FLOPs the backward's products execute: 2·64·64·K a 64 x 64 tile
+    pair (i >= j) of a chunk and product of depth K (or of width ds
+    over K = 64).  Over a chunk's n(n + 1)/2 such pairs (n = Q / 64):
+    S = C·Bᵀ once a group (`ssd_bwd_dg`) and once a head (`ssd_bwd_dx`),
+    dM twice and dX a head, dC and dB a group (on the f32 cores)."""
+    BC, Q, nh, hd = x_shape
+    g, ds = b_shape[-2:]
+    n = Q // _BWD_TILE
+    pairs = BC * n * (n + 1) // 2
+    return 2 * _BWD_TILE * _BWD_TILE * pairs * (3 * g * ds
+                                                 + nh * (ds + 3 * hd))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_intra_bwd)
+def _bwd_flops(x_shape, dt_shape, dacs_shape, b_shape, c_shape, dy_shape,
+               *args, **kwargs) -> int:
+    return ssd_bwd_flops(x_shape, b_shape)
+
+
+def ssd_intra_bwd_kernel(x, dt, dacs, b, c, dy):
+    """(dx, ddt, ddacs, db, dc) of `ssd_intra_kernel`'s intra-chunk term
+    through the backward's kernels, for inputs `bwd_route` sends there:
+    x, dy (BC, Q, nh, 64) and b, c (BC, Q, g, ds) in bf16, dt, dacs (BC,
+    Q, nh) in f32, on the card (or meta tensors, which take the op's fake
+    version).  Gradients in the inputs' dtypes; two calls on the same
+    inputs give bitwise equal ones.  Counts the three launches of a call
+    on the card (a fake or meta call launches nothing and counts
+    nothing)."""
+    BC, Q, nh, hd = x.shape
+    g, ds = b.shape[-2:]
+    if bwd_route(x.device.type, x.dtype, Q, hd, ds, nh, g) != "kernel":
+        raise ValueError(f"the backward's kernels take card bf16 x with hd "
+                         f"{_BWD_HD}, ds a multiple of 64 up to {_MAX_DS} and "
+                         f"Q a multiple of 64 up to {_WGMMA_MAX_Q}: "
+                         f"{x.device.type} {x.dtype}, x {tuple(x.shape)}, "
+                         f"b {tuple(b.shape)}")
+    if (tuple(dt.shape) != (BC, Q, nh) or dacs.shape != dt.shape
+            or tuple(b.shape) != (BC, Q, g, ds) or c.shape != b.shape
+            or dy.shape != x.shape):
+        raise ValueError("expected x, dy (BC, Q, nh, hd), dt/dacs (BC, Q, "
+                         "nh), b/c (BC, Q, g, ds)")
+    if b.dtype != x.dtype or c.dtype != x.dtype or dy.dtype != x.dtype:
+        raise TypeError("the backward takes x, b, c and dy of one dtype")
+    if dt.dtype != torch.float32 or dacs.dtype != torch.float32:
+        raise TypeError("the backward takes float32 dt and dacs")
+    if x.numel() == 0:                  # no chunk or no head: nothing flows
+        return tuple(torch.zeros_like(t) for t in (x, dt, dacs, b, c))
+    x, dt, dacs, b, c, dy = (t.contiguous() for t in (x, dt, dacs, b, c, dy))
+    dx, ddt, ddacs, db, dc, _ = ssd_intra_bwd_op(x, dt, dacs, b, c, dy)
+    if not sharding.launched(dx):
+        return dx, ddt, ddacs, db, dc
+    ssd_intra_bwd_kernel.launches += 3
+    for name in ssd_intra_bwd_kernel.launches_by:
+        ssd_intra_bwd_kernel.launches_by[name] += 1
+    return dx, ddt, ddacs, db, dc
+
+
+#: kernel launches, and those of each of the three kernels (one each a
+#: call), since the counts were last set to 0
+ssd_intra_bwd_kernel.launches = 0
+ssd_intra_bwd_kernel.launches_by = {"dg": 0, "dx": 0, "dbdc": 0}

@@ -343,6 +343,167 @@ def test_ssd_backward_over_chunks_matches_the_plain_scan():
     _assert_f64(got, want, "ssd")
 
 
+# the SSD backward's route: (device, dtype, Q, hd, ds, nh, g) -> route
+SSD_BWD_ROUTES = {
+    "cuda-bf16-cell": ("cuda", torch.bfloat16, 256, 64, 64, 112, 2, "kernel"),
+    "meta-bf16-cell": ("meta", torch.bfloat16, 256, 64, 64, 112, 2, "kernel"),
+    "cpu-bf16-cell": ("cpu", torch.bfloat16, 256, 64, 64, 112, 2, "plain"),
+    "cuda-f32-cell": ("cuda", torch.float32, 256, 64, 64, 112, 2, "plain"),
+    "meta-f32-cell": ("meta", torch.float32, 256, 64, 64, 112, 2, "plain"),
+    "cuda-f64-cell": ("cuda", torch.float64, 256, 64, 64, 112, 2, "plain"),
+    "cpu-f64-cell": ("cpu", torch.float64, 256, 64, 64, 112, 2, "plain"),
+    "cuda-bf16-q64-ds256": ("cuda", torch.bfloat16, 64, 64, 256, 4, 1,
+                            "kernel"),
+    "cuda-bf16-q1024-ds128": ("cuda", torch.bfloat16, 1024, 64, 128, 48, 1,
+                              "kernel"),
+    "cuda-bf16-q320": ("cuda", torch.bfloat16, 320, 64, 64, 8, 2, "kernel"),
+    "cuda-bf16-hd128": ("cuda", torch.bfloat16, 256, 128, 64, 8, 2, "plain"),
+    "cuda-bf16-hd32": ("cuda", torch.bfloat16, 256, 32, 64, 8, 2, "plain"),
+    "cuda-bf16-q100": ("cuda", torch.bfloat16, 100, 64, 64, 8, 2, "plain"),
+    "cuda-bf16-q32": ("cuda", torch.bfloat16, 32, 64, 64, 8, 2, "plain"),
+    "cuda-bf16-q2048": ("cuda", torch.bfloat16, 2048, 64, 64, 8, 2, "plain"),
+    "cuda-bf16-ds96": ("cuda", torch.bfloat16, 256, 64, 96, 8, 2, "plain"),
+    "cuda-bf16-ds320": ("cuda", torch.bfloat16, 256, 64, 320, 8, 2, "plain"),
+    "cuda-bf16-ds16": ("cuda", torch.bfloat16, 256, 64, 16, 8, 2, "plain"),
+    "cuda-bf16-nh-not-groups": ("cuda", torch.bfloat16, 256, 64, 64, 6, 4,
+                                "plain"),
+}
+
+
+@pytest.mark.parametrize("case", list(SSD_BWD_ROUTES))
+def test_ssd_bwd_route_rule(case):
+    from repro_torch.kernels.ssd_scan import bwd_route
+    *args, want = SSD_BWD_ROUTES[case]
+    assert bwd_route(*args) == want
+
+
+@pytest.mark.parametrize("device", ["meta", "fake-cuda"])
+def test_ssd_bwd_op_fake_gives_the_gradients_shapes(device):
+    """On meta and fake CUDA tensors the router takes the kernels' op,
+    which allocates what the launches allocate: the five gradients like
+    their inputs and the f32 dG scratch (BC, g, Q, Q); nothing launches
+    and nothing counts."""
+    import contextlib
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import ssd_scan
+    BC, Q, nh, hd, g, ds = 3, 320, 8, 64, 2, 128
+    counts = grad.ssd_bwd_routes()
+    launches = ssd_scan.ssd_intra_bwd_kernel.launches
+    mode = FakeTensorMode() if device == "fake-cuda" else \
+        contextlib.nullcontext()
+    dev = "cuda" if device == "fake-cuda" else "meta"
+    with mode:
+        x = torch.empty((BC, Q, nh, hd), dtype=torch.bfloat16, device=dev)
+        dt = torch.empty((BC, Q, nh), dtype=torch.float32, device=dev)
+        b = torch.empty((BC, Q, g, ds), dtype=torch.bfloat16, device=dev)
+        got = grad.ssd_intra_bwd(x, dt, dt, b, b, x)
+        *_, dg = ssd_scan.ssd_intra_bwd_op(x, dt, dt, b, b, x)
+    for t, like in zip(got, (x, dt, dt, b, b)):
+        assert (t.shape, t.dtype, t.device.type) == (like.shape, like.dtype,
+                                                     dev)
+    assert (dg.shape, dg.dtype) == ((BC, g, Q, Q), torch.float32)
+    assert grad.ssd_bwd_routes() == counts
+    assert ssd_scan.ssd_intra_bwd_kernel.launches == launches
+
+
+# (BC, Q, nh, hd, g, ds) -> the backward's executed FLOPs in closed form:
+# 2·64·64 a 64 x 64 tile pair and unit of depth, over n(n + 1)/2 pairs a
+# chunk; per group 3·ds (S, dC, dB), per head ds + 3·hd (S, dM twice, dX)
+SSD_BWD_FLOPS = {
+    "zamba2-7b-instruct-layer": ((32, 256, 112, 64, 2, 64),
+                                 2 * 64 * 64 * 32 * 10
+                                 * (3 * 2 * 64 + 112 * (64 + 3 * 64))),
+    "mamba2-780m-layer": ((16, 256, 48, 64, 1, 128),
+                          2 * 64 * 64 * 16 * 10
+                          * (3 * 1 * 128 + 48 * (128 + 3 * 64))),
+    "one-tile": ((1, 64, 2, 64, 1, 64),
+                 2 * 64 * 64 * 1 * 1 * (3 * 64 + 2 * (64 + 3 * 64))),
+}
+
+
+@pytest.mark.parametrize("case", list(SSD_BWD_FLOPS))
+def test_ssd_bwd_flops_closed_form(case):
+    """The formula against its closed form, and through `FlopCounterMode`
+    on meta tensors (the formula is registered on the op)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import ssd_scan
+    (BC, Q, nh, hd, g, ds), want = SSD_BWD_FLOPS[case]
+    assert ssd_scan.ssd_bwd_flops((BC, Q, nh, hd), (BC, Q, g, ds)) == want
+    x = torch.empty((BC, Q, nh, hd), dtype=torch.bfloat16, device="meta")
+    dt = torch.empty((BC, Q, nh), dtype=torch.float32, device="meta")
+    b = torch.empty((BC, Q, g, ds), dtype=torch.bfloat16, device="meta")
+    with FlopCounterMode(display=False) as counter:
+        ssd_scan.ssd_intra_bwd_op(x, dt, dt, b, b, x)
+    assert counter.get_total_flops() == want
+
+
+def test_ssd_backward_looks_up_ssd_intra_bwd_when_it_runs(monkeypatch):
+    """`SSDIntra.backward` calls `grad.ssd_intra_bwd` as it is when the
+    backward runs (the fault mutants patch it there), and on the CPU the
+    router takes the plain version, bf16 at the kernels' shapes included,
+    and counts it as a plain call."""
+    gen = torch.Generator().manual_seed(6)
+    BC, Q, nh, hd, g, ds = 1, 64, 2, 64, 1, 64
+    x = torch.randn((BC, Q, nh, hd), generator=gen).to(torch.bfloat16)
+    b, c = (torch.randn((BC, Q, g, ds), generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    dt = torch.rand((BC, Q, nh), generator=gen) * 0.1
+    dacs = torch.cumsum(-dt, 1)
+    ins = [t.requires_grad_() for t in (x, dt, dacs, b, c)]
+    out = ops.ssd_intra(*ins)
+    seen = []
+    router = grad.ssd_intra_bwd
+
+    def spy(*a):
+        seen.append(a[0].shape)
+        return router(*a)
+    monkeypatch.setattr(grad, "ssd_intra_bwd", spy)
+    counts = grad.ssd_bwd_routes()
+    out.float().sum().backward()
+    assert seen == [x.shape]
+    assert grad.ssd_bwd_routes() == {"kernel": counts["kernel"],
+                                     "plain": counts["plain"] + 1}
+    assert x.grad.dtype == torch.bfloat16 and b.grad.shape == b.shape
+
+
+def test_ssd_bwd_scales_are_the_summands_rms():
+    """`ref.ssd_bwd_scales` against each gradient element's summands
+    written out whole, in f64 (g < nh, several chunks)."""
+    BC, Q, nh, hd, g, ds = 2, 12, 4, 3, 2, 5
+    hpg = nh // g
+    x, dt, A, b, c = (t.detach() for t in _ssd_inputs(BC, Q, nh, hd, g, ds))
+    dacs = torch.cumsum(dt * A, 1)
+    dy = torch.tensor(np.random.default_rng(8).standard_normal(x.shape),
+                      dtype=F64)
+    got = ref.ssd_bwd_scales(x, dt, dacs, b, c, dy)
+    # per head: G of its group, L, M, dM, W; dG summed over a group's heads
+    grp = torch.arange(nh) // hpg
+    gm = torch.einsum("zigs,zjgs->zgij", c, b)[:, grp]      # (BC, nh, Q, Q)
+    seg = dacs.transpose(1, 2)[..., :, None] - dacs.transpose(1, 2)[
+        ..., None, :]
+    L = seg.masked_fill(torch.ones(Q, Q, dtype=torch.bool).triu(1),
+                        float("-inf")).exp()
+    dtj = dt.transpose(1, 2)[..., None, :]
+    m = gm * L * dtj
+    dm = torch.einsum("zihp,zjhp->zhij", dy, x)
+    w = dm * m
+    dg = (dm * L * dtj).reshape(BC, g, hpg, Q, Q).sum(2)
+    t_dx = m[..., None] * dy.permute(0, 2, 1, 3)[:, :, :, None]  # z h i j p
+    t_ddt = dm * gm * L
+    t_dc = dg[..., None] * b.permute(0, 2, 1, 3)[:, :, None]     # z g i j s
+    t_db = dg[..., None] * c.permute(0, 2, 1, 3)[:, :, :, None]
+    want = (t_dx.square().sum(2).sqrt().permute(0, 2, 1, 3),
+            t_ddt.square().sum(2).sqrt().transpose(1, 2),
+            (w.square().sum(3) + w.square().sum(2)).sqrt().transpose(1, 2),
+            t_db.square().sum(2).sqrt().permute(0, 2, 1, 3),
+            t_dc.square().sum(3).sqrt().permute(0, 2, 1, 3))
+    for gt, wt in zip(got, want):
+        torch.testing.assert_close(gt, wt, rtol=1e-12, atol=1e-12)
+
+
 def test_functions_route_only_when_a_gradient_is_needed():
     q = torch.randn(1, 8, 2, 8)
     with mock.patch.object(grad.FlashAttention, "apply") as fa, \
@@ -1096,6 +1257,59 @@ def _bf16_grad_close(got, want, sigma, what):
         f"summands' root-sum-square {float(sigma[at]):.4e}"
 
 
+def _f32_sum_close(got, want, sigma, what):
+    """The SSD backward's d dt or d dacs against `ssd_intra_bwd_plain`'s
+    in f32 on the same bf16 inputs.  Both are f32 sums of f32 products of
+    the same exact values (bf16 products accumulate exactly in f32),
+    rounded nowhere, so they differ in the order of f32 additions alone:
+    each element within 2^-12·σ + 2^-20·RMS(w), σ its summands'
+    root-sum-square (`ref.ssd_bwd_scales`; the card read at most
+    3.5e-5·σ), and the whole within 1e-5 of RMS(w) (the card read 4.4e-7
+    to 1.7e-6).  Summing dM or M rounded to bf16 (2^-9 a summand) reads
+    ~1e-3 of both."""
+    g, w = got.double(), want.double()
+    rms = float(w.pow(2).mean().sqrt())
+    over = (g - w).abs() - (2 ** -12 * sigma.double() + 2 ** -20 * rms)
+    bad = int((over > 0).sum())
+    rel = float((g - w).pow(2).mean().sqrt()) / rms
+    at = tuple(int(i) for i in torch.unravel_index(over.argmax(), w.shape))
+    assert bad == 0 and rel < 1e-5, \
+        f"{what}: {bad} elements beyond the limit, relative RMS {rel:.3e}; " \
+        f"worst at {at}: got {float(g[at]):.6e}, want {float(w[at]):.6e}, " \
+        f"summands' root-sum-square {float(sigma[at]):.4e}"
+
+
+def _rounded_dm_plain(*ins):
+    """`ssd_intra_bwd_plain` with dM = dY·Xᵀ rounded to bf16 where it
+    forms it, so d dt and d dacs sum rounded values: the fault
+    `_f32_sum_close` must reject."""
+    einsum = torch.einsum
+
+    def rounded(spec, *ops):
+        out = einsum(spec, *ops)
+        return out.bfloat16().to(out.dtype) \
+            if spec == "zighp,zjghp->zghij" else out
+    with mock.patch.object(torch, "einsum", rounded):
+        return grad.ssd_intra_bwd_plain(*ins)
+
+
+@pytest.mark.parametrize("k, name", [(1, "ddt"), (2, "ddacs")])
+def test_ssd_f32_sum_limit_passes_f32_and_rejects_rounded_dm(k, name):
+    """`_f32_sum_close`, the card test's limit on d dt and d dacs, on the
+    CPU at one 64-row chunk pair: the plain backward in f32 against the
+    same in f64 on the same bf16 inputs passes it, and the plain backward
+    summing dM rounded to bf16 fails it."""
+    ins = _ssd_card_inputs(torch.device("cpu"), 2, 128, 4, 64, 2, 64)
+    f64 = [t.double() for t in ins]
+    want = grad.ssd_intra_bwd_plain(*f64)[k]
+    sigma = ref.ssd_bwd_scales(*f64)[k]
+    f32 = [t.float() for t in ins]
+    _f32_sum_close(grad.ssd_intra_bwd_plain(*f32)[k], want, sigma, name)
+    with pytest.raises(AssertionError):
+        _f32_sum_close(_rounded_dm_plain(*f32)[k], want, sigma,
+                       f"{name} from dM rounded to bf16")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(CARD_FLASH_BWD))
 def test_card_flash_bwd_kernels_match_plain(cuda, case):
@@ -1187,6 +1401,108 @@ def test_card_ssd_function_matches_plain_autograd(cuda, shape, dtype):
         scale = float(w.float().abs().max())
         torch.testing.assert_close(gt.float() / scale, w.float() / scale,
                                    **_card_tol(dtype))
+
+
+#: the SSD backward kernels' shapes (BC, Q, nh, hd, g, ds): `CARD_SSD`'s
+#: (a 64-row chunk: a strip half past Q), ds 256 with Q 320, and one
+#: zamba2-7b-instruct layer's slice (4 of its 32 chunks)
+CARD_SSD_BWD = {
+    "card-ssd-g2": CARD_SSD[0],
+    "card-ssd-q64-ds128": CARD_SSD[1],
+    "q320-ds256": (2, 320, 4, 64, 2, 256),
+    "zamba2-7b-instruct-slice": (4, 256, 112, 64, 2, 64),
+}
+
+
+def _ssd_card_inputs(cuda, BC, Q, nh, hd, g, ds, seed=12):
+    """bf16 x, dy, b, c and f32 dt, dacs as a Mamba2 layer makes them:
+    dt in (0, 0.1], dacs the within-chunk cumsum of dt·A, A in [-4, 0)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x, dy = (torch.randn((BC, Q, nh, hd), generator=gen, device=cuda)
+             .to(torch.bfloat16) for _ in range(2))
+    b, c = ((torch.randn((BC, Q, g, ds), generator=gen, device=cuda)
+             * ds ** -0.5).to(torch.bfloat16) for _ in range(2))
+    dt = torch.rand((BC, Q, nh), generator=gen, device=cuda) * 0.1
+    A = -torch.rand(nh, generator=gen, device=cuda) * 4
+    return x, dt, torch.cumsum(dt * A, 1), b, c, dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CARD_SSD_BWD))
+def test_card_ssd_bwd_kernels_match_plain(cuda, case):
+    """The backward's kernels (`grad.ssd_intra_bwd` routes bf16 at hd 64
+    there) against `ssd_intra_bwd_plain` in f32 on the same inputs, each
+    of the five gradients element by element within a limit of its
+    summands' root-sum-square (`ref.ssd_bwd_scales`): dx, db and dc
+    within `_bf16_grad_close`'s (the kernels round M and dG to bf16
+    before their products and dX, dB, dC once), d dt and d dacs within
+    `_f32_sum_close`'s, which must reject them summed from dM rounded to
+    bf16; two calls bitwise equal; one count on the kernel route, three
+    launches."""
+    from repro_torch.kernels import ssd_scan
+    ins = _ssd_card_inputs(cuda, *CARD_SSD_BWD[case])
+    counts = grad.ssd_bwd_routes()
+    launched = dict(ssd_scan.ssd_intra_bwd_kernel.launches_by)
+    got = grad.ssd_intra_bwd(*ins)
+    assert grad.ssd_bwd_routes() == {"kernel": counts["kernel"] + 1,
+                                     "plain": counts["plain"]}
+    now = ssd_scan.ssd_intra_bwd_kernel.launches_by
+    assert {k: now[k] - launched[k] for k in now} == {"dg": 1, "dx": 1,
+                                                      "dbdc": 1}
+    again = grad.ssd_intra_bwd(*ins)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    f32 = [t.float() for t in ins]
+    plain = grad.ssd_intra_bwd_plain(*f32)
+    sigmas = ref.ssd_bwd_scales(*f32)
+    rounded = _rounded_dm_plain(*f32)
+    for name, g, p, sg, like, r in zip(("dx", "ddt", "ddacs", "db", "dc"),
+                                       got, plain, sigmas, ins, rounded):
+        assert g.dtype == like.dtype and g.shape == p.shape
+        what = f"{case} {name} vs ssd_intra_bwd_plain"
+        if name in ("ddt", "ddacs"):
+            _f32_sum_close(g, p, sg, what)
+            with pytest.raises(AssertionError):
+                _f32_sum_close(r, p, sg, f"{what}, from dM rounded")
+        else:
+            _bf16_grad_close(g, p, sg, what)
+    with pytest.raises(AssertionError):
+        _bf16_grad_close(torch.zeros_like(got[0]), plain[0], sigmas[0],
+                         "dx zeroed")
+
+
+@pytest.mark.gpu
+def test_card_ssd_bwd_kernels_complete_many_calls_in_a_row(cuda):
+    """2,000 calls in a row at zamba2-7b-instruct's layer slice (more work
+    items than SMs, so each block walks several) all complete, bitwise
+    equal: with one warp of a warpgroup releasing the rings for all four,
+    a late warp found its slot refilled and hung about one call in 1,000."""
+    ins = _ssd_card_inputs(cuda, *CARD_SSD_BWD["zamba2-7b-instruct-slice"])
+    first = grad.ssd_intra_bwd(*ins)
+    for i in range(2000):
+        got = grad.ssd_intra_bwd(*ins)
+        if i % 100 == 99:
+            torch.cuda.synchronize()
+    assert all(torch.equal(g, f) for g, f in zip(got, first))
+
+
+@pytest.mark.gpu
+def test_card_zamba2_instruct_step_takes_the_ssd_bwd_kernels(cuda):
+    """A zamba2-7b-instruct train step at full width (B 1, S 512) calls
+    the SSD backward once a Mamba2 layer, every call on the kernel
+    route."""
+    from repro_torch.configs.base import ShapeSpec as Shape
+    cfg = get_config("zamba2-7b-instruct")
+    params = init_params(cfg, device=cuda)
+    oc = adamw.OptConfig(moment_dtype="bfloat16", factored_v=True)
+    state = adamw.init(oc, params)
+    step = steps.make_train_step(cfg, oc)
+    batch = make_inputs(cfg, Shape("t", 512, 1, "train"), device=cuda)
+    before = grad.ssd_bwd_routes()
+    _, _, aux = step(params, state, batch)
+    assert torch.isfinite(aux["loss"])
+    after = grad.ssd_bwd_routes()
+    assert {r: after[r] - before[r] for r in after} == {
+        "kernel": cfg.num_layers, "plain": 0} == {"kernel": 81, "plain": 0}
 
 
 @pytest.mark.gpu
